@@ -1,0 +1,1 @@
+"""envs of the PyTorch / CUDA port (see the package docstring)."""
