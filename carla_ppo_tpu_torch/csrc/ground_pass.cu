@@ -25,118 +25,46 @@
 // load (exact f32; the TPU kernel's one-hot product must be exact too).
 // Built with -fmad=false so every multiply-add rounds as two operations,
 // exactly as the plain PyTorch version (one op per kernel) does on the card.
-#include <cuda_runtime.h>
-#include <math.h>
+// The pixel loop and the ladder live in ground_common.cuh, shared with
+// ground_pass_pose.cu.
+//
+// The same kernel also stands in for the TPU package's other ground-pass
+// variants, which compute this function under other Mosaic layouts:
+// render_batch_pallas_v4 (stripe-packed output, any camera),
+// render_batch_pallas_v3d (all stripes in one call, per-env banked tracks)
+// and render_batch_pallas_v3c (one call per stripe, any batch size). One
+// block per env over all H*W pixels takes any stripe plan, any camera and
+// any B, and only the prep reads the (shared or banked) track.
+#include "ground_common.cuh"
 
 namespace {
 
-constexpr int kMaxWindow = 256;
-constexpr int kMaxStripes = 64;
-constexpr int kThreads = 256;
-
-struct RoadStyle {
-  float edge_half;        // edge_line_width / 2
-  float center_half;      // center_line_half_width
-  float dash_period;      // center_dash_period
-  float dash_len;         // center_dash_period * center_dash_duty
-  float shoulder;         // shoulder_width
-  float sidewalk;         // sidewalk_width
-  float sidewalk_outer;   // shoulder_width + sidewalk_width
-  float corridor_margin;  // 25 m beyond the widest band
-};
-
-// Python-style modulo (result takes the divisor's sign), as jnp.mod and
-// torch.remainder compute it.
-__device__ __forceinline__ float py_mod(float a, float b) {
-  float m = fmodf(a, b);
-  if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) m += b;
-  return m;
-}
-
-__device__ __forceinline__ int classify(float lat, float s, float dist, float lw,
-                                        float rw, const RoadStyle& st) {
-  const bool on_road = (lat >= -rw) && (lat <= lw);
-  const bool edge_line =
-      (fabsf(lat - lw) <= st.edge_half) || (fabsf(lat + rw) <= st.edge_half);
-  const bool dash_on = py_mod(s, st.dash_period) < st.dash_len;
-  const float road_center = (lw - rw) / 2.0f;
-  const bool center_line = (fabsf(lat - road_center) <= st.center_half) && dash_on;
-  const float off = fmaxf(lat - lw, -rw - lat);
-  const bool shoulder = (off > 0.0f) && (off <= st.shoulder);
-  const bool sidewalk = (off > st.shoulder) && (off <= st.sidewalk_outer);
-  const float widest = fmaxf(lw, rw);
-  const bool corridor =
-      dist <= ((widest + st.shoulder) + st.sidewalk) + st.corridor_margin;
-  int cls = 9;                           // VEGETATION
-  if (sidewalk) cls = 8;                 // SIDEWALKS
-  if (shoulder) cls = 3;                 // OTHER
-  if (on_road) cls = 7;                  // ROADS
-  if (on_road && center_line) cls = 6;   // ROADLINES
-  if (edge_line) cls = 6;                // ROADLINES
-  if (!corridor) cls = 9;                // VEGETATION
-  return cls;
-}
+using ground::kMaxStripes;
+using ground::kMaxWindow;
+using ground::kThreads;
 
 __global__ void __launch_bounds__(kThreads)
 ground_pass_kernel(const float* __restrict__ win_cols,
                    const float* __restrict__ payload,
                    const float* __restrict__ slab,
                    const int* __restrict__ stripes, int n_stripes, int sky_px,
-                   int ground_px, int hw, int K0, RoadStyle st,
+                   int ground_px, int hw, int K0, ground::RoadStyle st,
                    int* __restrict__ out) {
-  __shared__ float s_wx[kMaxWindow];
-  __shared__ float s_wy[kMaxWindow];
-  __shared__ float s_pay[7][kMaxWindow];
-  __shared__ int s_stripe[kMaxStripes * 3];
+  __shared__ ground::Window w;
 
   const int b = blockIdx.x;
   const float* win = win_cols + static_cast<size_t>(b) * K0 * 8;
   const float* pay = payload + static_cast<size_t>(b) * 8 * K0;
   for (int i = threadIdx.x; i < K0; i += blockDim.x) {
-    s_wx[i] = win[i * 8 + 0];
-    s_wy[i] = win[i * 8 + 1];
+    w.wx[i] = win[i * 8 + 0];
+    w.wy[i] = win[i * 8 + 1];
 #pragma unroll
-    for (int c = 0; c < 7; ++c) s_pay[c][i] = pay[c * K0 + i];
+    for (int c = 0; c < 7; ++c) w.pay[c][i] = pay[c * K0 + i];
   }
-  for (int i = threadIdx.x; i < n_stripes * 3; i += blockDim.x) {
-    s_stripe[i] = stripes[i];
-  }
+  ground::stage_stripes(w, stripes, n_stripes);
   __syncthreads();
-
-  int* dst = out + static_cast<size_t>(b) * hw;
-  for (int q = threadIdx.x; q < hw; q += blockDim.x) {
-    if (q < sky_px) {
-      dst[q] = 0;  // SegClass.NONE
-      continue;
-    }
-    const int p = q - sky_px;
-    // Stripe rows are (K, offset, P), offsets ascending.
-    int K = s_stripe[0];
-    for (int si = 1; si < n_stripes; ++si) {
-      if (p >= s_stripe[si * 3 + 1]) K = s_stripe[si * 3];
-    }
-    const float a = slab[p];
-    const float bb = slab[ground_px + p];
-    float dx = a - s_wx[0];
-    float dy = bb - s_wy[0];
-    float best = dx * dx + dy * dy;
-    int bi = 0;
-    for (int k = 1; k < K; ++k) {
-      dx = a - s_wx[k];
-      dy = bb - s_wy[k];
-      const float d2 = dx * dx + dy * dy;
-      if (d2 < best) {
-        best = d2;
-        bi = k;
-      }
-    }
-    const float fx = s_pay[0][bi];
-    const float fy = s_pay[1][bi];
-    const float lat = bb * fx - a * fy + s_pay[2][bi];
-    const float s = s_pay[4][bi] + a * fx + bb * fy + s_pay[3][bi];
-    const float dist = sqrtf(fmaxf(best, 0.0f));
-    dst[q] = classify(lat, s, dist, s_pay[5][bi], s_pay[6][bi], st);
-  }
+  ground::shade_pixels(w, n_stripes, slab, sky_px, ground_px, hw, st,
+                       out + static_cast<size_t>(b) * hw);
 }
 
 }  // namespace
@@ -153,8 +81,8 @@ extern "C" int launch_ground_pass(const void* win_cols, const void* payload,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0) return 0;
-  RoadStyle st{edge_half, center_half, dash_period, dash_len,
-               shoulder,  sidewalk,    sidewalk_outer, corridor_margin};
+  ground::RoadStyle st{edge_half, center_half, dash_period, dash_len,
+                       shoulder,  sidewalk,    sidewalk_outer, corridor_margin};
   ground_pass_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(win_cols), static_cast<const float*>(payload),
       static_cast<const float*>(slab), static_cast<const int*>(stripes),

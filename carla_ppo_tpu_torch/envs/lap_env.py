@@ -9,6 +9,11 @@ carries the re-spawned state (step_count 0) and, in StepOutput.obs, the new
 episode's first observation. The persistent checkpoint index carries across
 the reset.
 
+Every function also takes a banked `EnvParams` (a TrackData with a leading
+bank axis, see envs/types.py): each env then reads its own row,
+`state.route_id`, through observations.EnvTrack; `reset` takes the rows as
+`route_id`. The route and lap-bank envs are built on this.
+
 Only the zero-NPC configuration is ported: the NPC tick (reactive traffic,
 NPC collisions, overtake events) waits for the traffic slice and `step`
 raises for `num_npcs > 0`. The NPC state fields stay, because the camera's
@@ -25,7 +30,7 @@ from torch import Tensor
 
 from carla_ppo_tpu_torch.envs import geometry, rewards
 from carla_ppo_tpu_torch.envs.dynamics import vehicle_step
-from carla_ppo_tpu_torch.envs.observations import encode_state_fns, wp_gather
+from carla_ppo_tpu_torch.envs.observations import encode_state_fns, env_track
 from carla_ppo_tpu_torch.envs.types import (
     NUM_NPC_SLOTS,
     EnvParams,
@@ -63,24 +68,30 @@ def reset(
     checkpoint_idx: Tensor | int,
     is_training: Tensor | bool = True,
     batch: int | None = None,
+    route_id: Tensor | int | None = None,
 ) -> EnvState:
     """Spawn a batch of vehicles: training at the persistent checkpoint,
-    eval at waypoint 0. `batch` is needed only when both index and flag are
-    scalars."""
+    eval at waypoint 0. On a bank, `route_id` names each env's row (it is
+    required there). `batch` is needed only when every argument is a
+    scalar."""
     track = params.track
     dev = track.device
+    if track.banked and route_id is None:
+        raise ValueError("a banked track needs route_id (each env's bank row)")
     if batch is None:
-        batch = next(t.shape[0] for t in (checkpoint_idx, is_training)
+        batch = next(t.shape[0] for t in (checkpoint_idx, is_training, route_id)
                      if isinstance(t, Tensor) and t.ndim)
     checkpoint_idx = _as_batch(checkpoint_idx, batch, torch.int32, dev)
     is_training = _as_batch(is_training, batch, torch.bool, dev)
+    route_id = _as_batch(0 if route_id is None else route_id, batch, torch.int32, dev)
+    et = env_track(track, route_id)
 
     start_idx = torch.where(
-        is_training, torch.remainder(checkpoint_idx, track.length),
+        is_training, torch.remainder(checkpoint_idx, et.length),
         torch.zeros_like(checkpoint_idx),
     )
-    pos = track.pos[start_idx.long()]
-    fwd = track.fwd[start_idx.long()]
+    pos = et.at(track.pos, start_idx)
+    fwd = et.at(track.fwd, start_idx)
     yaw = torch.atan2(fwd[:, 1], fwd[:, 0])
 
     # One draw per quantity and env, always (so the stream does not depend
@@ -94,8 +105,12 @@ def reset(
     pos = pos + lateral * (params.spawn_pos_noise * n_pos)[:, None]
     yaw = yaw + params.spawn_yaw_noise * n_yaw
 
-    state = default_env_state(track, batch)
-    lo, hi = 25.0, max(float(track.length) - 25.0, 26.0)
+    state = default_env_state(track, batch, route_id)
+    lo = 25.0
+    if et.rows is None:
+        hi = max(float(track.length) - 25.0, 26.0)
+    else:
+        hi = torch.clamp(et.length.to(torch.float32) - 25.0, min=26.0)[:, None]
     npc_s = start_idx.to(torch.float32)[:, None] + (lo + (hi - lo) * u_gap)
     npc_speed = params.npc_min_speed + (params.npc_max_speed - params.npc_min_speed) * u_speed
     state = dataclasses.replace(
@@ -121,26 +136,27 @@ def _advance_waypoint(state: EnvState, params: EnvParams) -> Tensor:
     """New waypoint index: count the leading passed waypoints (positive dot
     of wp forward with the offset to the car) in a static lookahead."""
     track = params.track
+    et = env_track(track, state.route_id)
     K = params.waypoint_lookahead
     offsets = torch.arange(1, K + 1, dtype=torch.int32, device=track.device)
     idxs = state.waypoint_idx[:, None] + offsets[None, :]
-    wp_pos = wp_gather(track.pos, idxs, track.length, track.is_loop)  # [B, K, 2]
-    wp_fwd = wp_gather(track.fwd, idxs, track.length, track.is_loop)
+    wp_pos = et.gather(track.pos, idxs)  # [B, K, 2]
+    wp_fwd = et.gather(track.fwd, idxs)
     rel = state.vehicle.pos[:, None, :] - wp_pos
     dots = (wp_fwd * rel).sum(-1)
     advance = torch.cumprod((dots > 0.0).to(torch.int32), dim=1).sum(1)
     new_idx = (state.waypoint_idx + advance).to(torch.int32)
     if not track.is_loop:
-        new_idx = torch.clamp(new_idx, max=track.length - 1)
+        new_idx = et.wrap(new_idx)  # open routes stop at their last waypoint
     return new_idx
 
 
 def _center_distance_and_angle(state: EnvState, params: EnvParams) -> Tuple[Tensor, Tensor]:
     track = params.track
-    L, loop = track.length, track.is_loop
-    cur_pos = wp_gather(track.pos, state.waypoint_idx, L, loop)
-    nxt_pos = wp_gather(track.pos, state.waypoint_idx + 1, L, loop)
-    cur_fwd = wp_gather(track.fwd, state.waypoint_idx, L, loop)
+    et = env_track(track, state.route_id)
+    cur_pos = et.gather(track.pos, state.waypoint_idx)
+    nxt_pos = et.gather(track.pos, state.waypoint_idx + 1)
+    cur_fwd = et.gather(track.fwd, state.waypoint_idx)
     d = geometry.distance_to_line(cur_pos, nxt_pos, state.vehicle.pos)
     moving = (state.vehicle.speed > 1e-3)[:, None]
     ref_vec = torch.where(moving, state.vehicle.velocity, state.vehicle.forward)
@@ -163,7 +179,7 @@ def step(
     if params.num_npcs > 0:
         raise NotImplementedError("NPC traffic is not ported yet (num_npcs must be 0)")
     track = params.track
-    L, loop = track.length, track.is_loop
+    et = env_track(track, state.route_id)
     action = action.to(torch.float32)
     act = torch.stack(
         [torch.clamp(action[:, 0], -1.0, 1.0), torch.clamp(action[:, 1], 0.0, 1.0)], -1
@@ -187,7 +203,8 @@ def step(
     center_lane_deviation = state.center_lane_deviation + distance_from_center
     speed_accum = state.speed_accum + vehicle.speed
 
-    laps_completed = (waypoint_idx - state.start_waypoint_idx).to(torch.float32) / float(L)
+    length_f = float(et.length) if et.rows is None else et.length.to(torch.float32)
+    laps_completed = (waypoint_idx - state.start_waypoint_idx).to(torch.float32) / length_f
     laps_done = laps_completed >= params.max_laps
 
     freq = params.checkpoint_frequency
@@ -197,11 +214,11 @@ def step(
         state.checkpoint_idx,
     ).to(torch.int32)
 
-    cur_wp = wp_gather(track.pos, waypoint_idx, L, loop)
-    nxt_wp = wp_gather(track.pos, waypoint_idx + 1, L, loop)
+    cur_wp = et.gather(track.pos, waypoint_idx)
+    nxt_wp = et.gather(track.pos, waypoint_idx + 1)
     ego_lat = geometry.signed_distance_to_line(cur_wp, nxt_wp, vehicle.pos)
-    lw = wp_gather(track.left_width, waypoint_idx, L, loop)
-    rw = wp_gather(track.right_width, waypoint_idx, L, loop)
+    lw = et.gather(track.left_width, waypoint_idx)
+    rw = et.gather(track.right_width, waypoint_idx)
     lane_invasion = (ego_lat > lw) | (ego_lat < -rw)
     collision = (ego_lat > lw + 1.5) | (ego_lat < -(rw + 1.5))
 
@@ -291,11 +308,12 @@ def autoreset_step(
     generator: torch.Generator,
     obs_fn: str | None = "vector",
 ) -> Tuple[EnvState, StepOutput]:
-    """`step`, then re-spawn every env whose episode ended, within the step."""
+    """`step`, then re-spawn every env whose episode ended, within the step
+    (on a bank: on the same row)."""
     next_state, out = step(state, action, params, obs_fn=obs_fn)
     fresh = reset(
         params, generator, checkpoint_idx=next_state.checkpoint_idx,
-        is_training=state.is_training,
+        is_training=state.is_training, route_id=next_state.route_id,
     )
     next_state = select_envs(out.done, fresh, next_state)
     if obs_fn is not None:

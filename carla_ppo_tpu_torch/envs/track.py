@@ -84,6 +84,22 @@ def track_from_arrays(arrays: dict, device="cuda") -> TrackData:
     )
 
 
+def bank_from_arrays(banks: Sequence[dict], device="cuda") -> TrackData:
+    """A bank (leading track axis) from the numpy arrays of R tracks of one
+    capacity and one `is_loop`; `length` becomes an [R] int32 tensor."""
+    loops = {bool(a["is_loop"]) for a in banks}
+    if len(loops) != 1:
+        raise ValueError("a bank holds only loops or only open routes")
+    stacked = {
+        name: np.stack([a[name] for a in banks])
+        for name in ("pos", "fwd", "maneuver", "left_width", "right_width", "prop_class",
+                     "prop_lateral", "prop_height", "prop_halfwidth")
+    }
+    track = track_from_arrays(dict(stacked, length=0, is_loop=loops.pop()), device)
+    lengths = np.asarray([int(a["length"]) for a in banks], np.int32)
+    return dataclasses.replace(track, length=torch.as_tensor(lengths, device=track.device))
+
+
 def track_to_arrays(track: TrackData) -> dict:
     """Inverse of track_from_arrays (numpy copies on the host)."""
     out = {}
@@ -158,11 +174,25 @@ def make_lap_track(
 ) -> TrackData:
     """Closed Fourier-perturbed circle; seed 0 is the canonical lap circuit.
     `props=True` dresses the roadside with the 13-class scene."""
+    arrays = lap_track_arrays(seed, mean_radius, n_harmonics, max_extra_curvature, resolution,
+                              half_width, capacity, props)
+    return track_from_arrays(arrays, device)
+
+
+def lap_track_arrays(
+    seed: int = 0,
+    mean_radius: float = 160.0,
+    n_harmonics: int = 4,
+    max_extra_curvature: float = 0.045,
+    resolution: float = 1.0,
+    half_width: float = DEFAULT_HALF_WIDTH,
+    capacity: int | None = None,
+    props: bool = False,
+) -> dict:
+    """make_lap_track's numpy arrays (host side, before the device copy)."""
     pts = _lap_points(seed, mean_radius, n_harmonics, max_extra_curvature)
     arrays = _polyline_arrays(pts, True, resolution, half_width, capacity, None)
-    if props:
-        arrays = _bake_props_arrays(arrays, seed)
-    return track_from_arrays(arrays, device)
+    return _bake_props_arrays(arrays, seed) if props else arrays
 
 
 def _smooth_noise(rng: np.random.Generator, n: int, scale: int) -> np.ndarray:

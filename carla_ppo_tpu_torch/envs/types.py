@@ -7,9 +7,13 @@ configuration (EnvParams, VehicleParams, RewardParams) is plain Python
 numbers, so no configuration value ever becomes a device tensor.
 
 Left out against the JAX EnvState: `rng` (the port draws from an explicit
-torch.Generator passed to reset/rollout) and the route-env fields
-(`route_id`, `num_routes_completed`, `route_frac_offset`), which the lap env
-never reads.
+torch.Generator passed to reset/step/rollout).
+
+A track bank (the route env's routes, the lap bank's circuits) is one
+TrackData whose arrays carry a leading bank axis ([R, cap, ...]) and whose
+`length` is an [R] int32 tensor; each env reads its own row,
+`EnvState.route_id`. `is_loop` stays one host bool per bank (routes are
+open, laps are loops).
 """
 
 from __future__ import annotations
@@ -93,15 +97,17 @@ def map_tensors(fn: Callable[..., Any], *objs: Any) -> Any:
 class TrackData:
     """Device-resident route: a padded polyline of waypoints 1 m apart.
 
-    `length` (live prefix) and `is_loop` are host values; every array is
-    float32 / int32 on the track's device."""
+    One track: `length` (live prefix) is a host int and the arrays are
+    [N, ...]. A bank of R tracks: every array has a leading [R] axis and
+    `length` is an [R] int32 tensor. `is_loop` is a host bool either way;
+    every array is float32 / int32 on the track's device."""
 
-    pos: Tensor  # [N, 2] float32
+    pos: Tensor  # [N, 2] float32 ([R, N, 2] for a bank)
     fwd: Tensor  # [N, 2] float32 unit forward
     maneuver: Tensor  # [N] int32 RoadOption
     left_width: Tensor  # [N] float32
     right_width: Tensor  # [N] float32
-    length: int
+    length: int | Tensor  # int, or [R] int32 for a bank
     is_loop: bool
     prop_class: Tensor  # [N // PROP_STRIDE, 2] int32 SegClass
     prop_lateral: Tensor  # [S, 2] float32
@@ -109,12 +115,20 @@ class TrackData:
     prop_halfwidth: Tensor  # [S, 2] float32
 
     @property
+    def banked(self) -> bool:
+        return self.pos.ndim == 3
+
+    @property
+    def num_tracks(self) -> int:
+        return self.pos.shape[0] if self.banked else 1
+
+    @property
     def capacity(self) -> int:
-        return self.pos.shape[0]
+        return self.pos.shape[-2]
 
     @property
     def prop_slots(self) -> int:
-        return self.prop_class.shape[0]
+        return self.prop_class.shape[-2]
 
     @property
     def device(self) -> torch.device:
@@ -174,6 +188,8 @@ class EnvParams:
     max_episode_steps: int = 1_000_000
     spawn_pos_noise: float = 0.0
     spawn_yaw_noise: float = 0.0
+    junction_spawn_prob: float = 0.0  # route env, training resets only
+    junction_spawn_backoff: int = 25
     num_npcs: int = 0
     npc_min_speed: float = 4.0
     npc_max_speed: float = 7.0
@@ -231,6 +247,8 @@ class EnvState:
     waypoint_idx: Tensor  # [B] int32
     start_waypoint_idx: Tensor  # [B] int32
     checkpoint_idx: Tensor  # [B] int32
+    route_id: Tensor  # [B] int32 row of a track bank (0 on a shared track)
+    num_routes_completed: Tensor  # [B] int32 (route env)
     low_speed_timer: Tensor  # [B] float32
     step_count: Tensor  # [B] int32
     time: Tensor  # [B] float32
@@ -255,15 +273,19 @@ class EnvState:
     npc_lateral: Tensor  # [B, NUM_NPC_SLOTS]
     npc_just_passed: Tensor  # [B]
     npc_overtakes: Tensor  # [B]
+    route_frac_offset: Tensor  # [B] float32 (route env: spawn index / route length)
 
     @property
     def batch_size(self) -> int:
         return self.waypoint_idx.shape[0]
 
 
-def default_env_state(track: TrackData, batch: int) -> EnvState:
-    """A zero-initialised batch placed at waypoint 0 of `track`."""
+def default_env_state(track: TrackData, batch: int, route_id: Tensor | None = None) -> EnvState:
+    """A zero-initialised batch placed at waypoint 0 of `track` (of each
+    env's `route_id` row for a bank)."""
     dev = track.device
+    if route_id is None:
+        route_id = torch.zeros(batch, dtype=torch.int32, device=dev)
 
     def f0():
         return torch.zeros(batch, dtype=torch.float32, device=dev)
@@ -274,8 +296,13 @@ def default_env_state(track: TrackData, batch: int) -> EnvState:
     def b0():
         return torch.zeros(batch, dtype=torch.bool, device=dev)
 
-    pos = track.pos[0].expand(batch, 2).clone()
-    yaw = torch.atan2(track.fwd[0, 1], track.fwd[0, 0]).expand(batch).clone()
+    if track.banked:
+        pos = track.pos[route_id.long(), 0].clone()
+        fwd = track.fwd[route_id.long(), 0]
+        yaw = torch.atan2(fwd[:, 1], fwd[:, 0])
+    else:
+        pos = track.pos[0].expand(batch, 2).clone()
+        yaw = torch.atan2(track.fwd[0, 1], track.fwd[0, 0]).expand(batch).clone()
     npc = torch.zeros(batch, NUM_NPC_SLOTS, dtype=torch.float32, device=dev)
     return EnvState(
         vehicle=VehicleState.create(pos, yaw),
@@ -283,6 +310,8 @@ def default_env_state(track: TrackData, batch: int) -> EnvState:
         waypoint_idx=i0(),
         start_waypoint_idx=i0(),
         checkpoint_idx=i0(),
+        route_id=route_id.to(torch.int32),
+        num_routes_completed=i0(),
         low_speed_timer=f0(),
         step_count=i0(),
         time=f0(),
@@ -307,4 +336,5 @@ def default_env_state(track: TrackData, batch: int) -> EnvState:
         npc_lateral=npc.clone(),
         npc_just_passed=f0(),
         npc_overtakes=f0(),
+        route_frac_offset=f0(),
     )

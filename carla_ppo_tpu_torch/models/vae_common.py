@@ -3,8 +3,9 @@
 `create_encode_batch_fn` builds the latent observation the PPO agent
 consumes, z_mean(64) ++ [steer, throttle, speed], for a whole env batch:
 render the seg camera (ops/rasterizer, CUDA kernels on the card), scale
-classes by 1/12, encode with the frozen VAE. Only the seg source on a shared
-track is ported (rgb frames and banked tracks wait).
+classes by 1/12, encode with the frozen VAE. The seg source is ported, on
+a shared track and (`banked=True`, the route and lap-bank envs) on a track
+bank; rgb frames wait.
 """
 
 from __future__ import annotations
@@ -30,17 +31,21 @@ def create_encode_batch_fn(
     model: VAE,
     measurements_to_include=("steer", "throttle", "speed"),
     cam: rasterizer.CameraConfig = rasterizer.CameraConfig(),
+    banked: bool = False,
     source: str = "seg",
 ) -> Callable[[EnvState, EnvParams], Tensor]:
-    """Batch latent-observation builder: (states, params) -> [B, z + m]."""
+    """Batch latent observations: a function (states, params) -> [B, z + m].
+    `banked=True` for batches whose params.track is a bank indexed by
+    states.route_id."""
     if source != "seg":
         raise NotImplementedError(f"VAE source {source!r} is not ported (only 'seg')")
     flags = tuple(m in measurements_to_include for m in ("steer", "throttle", "speed"))
     src_depth = model.source_shape[-1]
+    render = rasterizer.render_batch_banked if banked else rasterizer.render_batch
 
     @torch.no_grad()
     def encode_batch(states: EnvState, params: EnvParams) -> Tensor:
-        frames = rasterizer.seg_to_obs(rasterizer.render_batch(states, params, cam))
+        frames = rasterizer.seg_to_obs(render(states, params, cam))
         if src_depth != 1:
             frames = frames.expand(*frames.shape[:-1], src_depth)
         feats = [model.encode(frames)]

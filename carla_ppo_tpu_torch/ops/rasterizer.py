@@ -20,10 +20,20 @@ the same function beside it:
    candidate, drawn where it is nearer than the row-static ground depth.
    Kernel: `composite_cuda` (csrc/composite.cu); plain: `composite_plain`.
 
-`render_batch` / `render_batch_with_ground` launch the kernels for CUDA
-tensors and run the plain versions for CPU tensors; any other device
-raises. The stripe plan and every class-ladder constant are the JAX
-package's, so the two packages agree pixel for pixel up to float rounding.
+`render_batch` / `render_batch_with_ground` (one shared track) and
+`render_batch_banked` (a track bank, each env on its row `route_id`: the
+route and lap-bank envs) launch the kernels for CUDA tensors and run the
+plain versions for CPU tensors; any other device raises. Only the prep
+reads the track, so both take the same two kernels on any camera (aligned
+or not) and any batch size.
+
+`render_batch_pose` is a third ground pass for a shared track: the window
+fetch and the camera rotation move into the kernel (`ground_pass_pose`,
+csrc/ground_pass_pose.cu), fed by a wrap-baked table and one 8-float pose
+per env (`prep_pose`); its output equals `ground_pass`'s.
+
+The stripe plan and every class-ladder constant are the JAX package's, so
+the two packages agree pixel for pixel up to float rounding.
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from carla_ppo_tpu_torch.envs.observations import wp_gather
+from carla_ppo_tpu_torch.envs.observations import env_track
 from carla_ppo_tpu_torch.envs.types import PROP_STRIDE, EnvParams, EnvState, SegClass
 from carla_ppo_tpu_torch.ops import rasterizer_cuda
 
@@ -182,27 +192,27 @@ def _device_layout(cam: CameraConfig, device: str):
 
 
 def window_table(track) -> Tensor:
-    """[capacity, 6] per-waypoint rows: pos.xy, fwd.xy, left / right width."""
+    """[capacity, 6] per-waypoint rows (pos.xy, fwd.xy, left / right width);
+    [R, capacity, 6] for a bank."""
     return torch.cat(
-        [track.pos, track.fwd, track.left_width[:, None], track.right_width[:, None]], 1
+        [track.pos, track.fwd, track.left_width[..., None], track.right_width[..., None]], -1
     )
 
 
-def prep_windows(states: EnvState, params: EnvParams, cam: CameraConfig) -> Tuple[Tensor, Tensor]:
-    """Per-env camera-rotated waypoint windows (port of _prep_windows):
-    (win_cols [B, K0, 8] with x, y in columns 0, 1; payload [B, 8, K0] =
-    fx, fy, c_lat, c_along, kidx, lw, rw, 0)."""
-    track = params.track
-    dev = track.device
-    K0 = cam.window
-    ar = torch.arange(K0, dtype=torch.int32, device=dev)
-    idxs = states.waypoint_idx[:, None] - cam.window_behind + ar[None, :]
-    win = wp_gather(window_table(track), idxs, track.length, track.is_loop)  # [B, K0, 6]
-
+def _camera_pose(states: EnvState, cam: CameraConfig) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """(cy, sy, cam_x, cam_y), each [B]: the camera's heading and position."""
     yaw = states.vehicle.yaw
-    cy, sy = torch.cos(yaw)[:, None], torch.sin(yaw)[:, None]
-    cam_x = states.vehicle.pos[:, 0:1] + cy * cam.mount_forward
-    cam_y = states.vehicle.pos[:, 1:2] + sy * cam.mount_forward
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    cam_x = states.vehicle.pos[:, 0] + cy * cam.mount_forward
+    cam_y = states.vehicle.pos[:, 1] + sy * cam.mount_forward
+    return cy, sy, cam_x, cam_y
+
+
+def _rotate_windows(win: Tensor, cy, sy, cam_x, cam_y, idx0: Tensor) -> Tuple[Tensor, Tensor]:
+    """Window rows [B, K0, >= 6] (x, y, fx, fy, lw, rw) into the camera
+    frame: (win_cols [B, K0, 8], payload [B, 8, K0]); pose values [B, 1].
+    csrc/ground_pass_pose.cu repeats these operations in this order."""
+    K0 = win.shape[1]
     wlx = win[..., 0] - cam_x
     wly = win[..., 1] - cam_y
     wpx = cy * wlx + sy * wly
@@ -211,14 +221,28 @@ def prep_windows(states: EnvState, params: EnvParams, cam: CameraConfig) -> Tupl
     fpy = -sy * win[..., 2] + cy * win[..., 3]
     c_lat = fpy * wpx - fpx * wpy
     c_along = -(wpx * fpx + wpy * fpy)
-    idx0 = (states.waypoint_idx - cam.window_behind).to(torch.float32)
-    kidx = idx0[:, None] + ar.to(torch.float32)[None, :]
+    kidx = idx0 + torch.arange(K0, dtype=torch.float32, device=win.device)[None, :]
     zeros = torch.zeros_like(wpx)
     win_cols = torch.stack([wpx, wpy] + [zeros] * 6, dim=2).contiguous()
     payload = torch.stack(
         [fpx, fpy, c_lat, c_along, kidx, win[..., 4], win[..., 5], zeros], dim=1
     ).contiguous()
     return win_cols, payload
+
+
+def prep_windows(states: EnvState, params: EnvParams, cam: CameraConfig) -> Tuple[Tensor, Tensor]:
+    """Per-env camera-rotated waypoint windows (port of _prep_windows), from
+    the shared track or each env's bank row: (win_cols [B, K0, 8] with x, y
+    in columns 0, 1; payload [B, 8, K0] = fx, fy, c_lat, c_along, kidx,
+    lw, rw, 0)."""
+    track = params.track
+    K0 = cam.window
+    ar = torch.arange(K0, dtype=torch.int32, device=track.device)
+    idxs = states.waypoint_idx[:, None] - cam.window_behind + ar[None, :]
+    win = env_track(track, states.route_id).gather(window_table(track), idxs)  # [B, K0, 6]
+    cy, sy, cam_x, cam_y = (x[:, None] for x in _camera_pose(states, cam))
+    idx0 = (states.waypoint_idx - cam.window_behind).to(torch.float32)[:, None]
+    return _rotate_windows(win, cy, sy, cam_x, cam_y, idx0)
 
 
 def _classify_block(lat, s, dist, lw, rw, consts: tuple[float, ...]) -> Tensor:
@@ -308,28 +332,32 @@ def _visible_props(states: EnvState, params: EnvParams, cam: CameraConfig):
     height [B, N], halfwidth [B, N]); N = 2 * window / PROP_STRIDE props +
     NUM_NPC_SLOTS vehicles (class NONE when inactive)."""
     track = params.track
+    et = env_track(track, states.route_id)
     dev = track.device
     S = cam.window // PROP_STRIDE
-    live = max(track.length // PROP_STRIDE, 1)
     slot0 = torch.div(states.waypoint_idx - cam.window_behind, PROP_STRIDE, rounding_mode="floor")
     slots = slot0[:, None] + torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+    if et.rows is None:
+        live = max(track.length // PROP_STRIDE, 1)
+    else:
+        live = torch.clamp(torch.div(et.length, PROP_STRIDE, rounding_mode="floor"), min=1)[:, None]
     if track.is_loop:
         slot_idx = torch.remainder(slots, live)
     else:
-        slot_idx = torch.clamp(slots, 0, live - 1)
-    n_slots = track.prop_class.shape[0]
+        slot_idx = torch.clamp(torch.clamp(slots, min=0), max=live - 1)
+    n_slots = track.prop_slots
     comb = torch.cat(
         [
-            track.pos[::PROP_STRIDE][:n_slots],
-            track.fwd[::PROP_STRIDE][:n_slots],
+            track.pos[..., ::PROP_STRIDE, :][..., :n_slots, :],
+            track.fwd[..., ::PROP_STRIDE, :][..., :n_slots, :],
             track.prop_class.to(torch.float32),
             track.prop_lateral,
             track.prop_height,
             track.prop_halfwidth,
         ],
-        1,
-    )  # [n_slots, 12]
-    win = comb[slot_idx.long()]  # [B, S, 12]
+        -1,
+    )  # [n_slots, 12] ([R, n_slots, 12] for a bank)
+    win = comb[slot_idx.long()] if et.rows is None else comb[et.rows[:, None], slot_idx.long()]
     wpos, wfwd = win[..., 0:2], win[..., 2:4]
     pcls = win[..., 4:6].to(torch.int32)
     plat, phgt, phwd = win[..., 6:8], win[..., 8:10], win[..., 10:12]
@@ -344,14 +372,14 @@ def _visible_props(states: EnvState, params: EnvParams, cam: CameraConfig):
         return b_pos, b_cls, b_hgt, b_hwd
 
     M = states.npc_s.shape[1]
-    L = float(track.length)
+    L = float(track.length) if et.rows is None else et.length.to(torch.float32)[:, None]
     if track.is_loop:
         npc_wp = torch.remainder(states.npc_s, L)
     else:
-        npc_wp = torch.clamp(states.npc_s, 0.0, L - 1.0)
+        npc_wp = torch.clamp(torch.clamp(states.npc_s, min=0.0), max=L - 1.0)
     npc_wp = npc_wp.to(torch.int32)
-    nwpos = wp_gather(track.pos, npc_wp, track.length, track.is_loop)
-    nwfwd = wp_gather(track.fwd, npc_wp, track.length, track.is_loop)
+    nwpos = et.gather(track.pos, npc_wp)
+    nwfwd = et.gather(track.fwd, npc_wp)
     n_normal = torch.stack([-nwfwd[..., 1], nwfwd[..., 0]], -1)
     npos = nwpos + n_normal * states.npc_lateral[..., None]
     active = torch.arange(M, device=dev) < params.num_npcs
@@ -457,7 +485,8 @@ def render_batch_with_ground(
     cam: CameraConfig = CameraConfig(),
     style: RoadStyle = RoadStyle(),
 ) -> Tuple[Tensor, Tensor]:
-    """([B, H, W] rich frames, [B, H, W] ground-only frames) int32."""
+    """([B, H, W] rich frames, [B, H, W] ground-only frames) int32, from the
+    shared track or, for a bank, each env's row."""
     B = states.batch_size
     win_cols, payload = prep_windows(states, params, cam)
     ground = ground_pass(win_cols, payload, cam, style)
@@ -473,8 +502,109 @@ def render_batch(
     cam: CameraConfig = CameraConfig(),
     style: RoadStyle = RoadStyle(),
 ) -> Tensor:
-    """[B, H, W] int32 seg frames for an env batch."""
+    """[B, H, W] int32 seg frames for an env batch on one shared track."""
+    if params.track.banked:
+        raise ValueError("params.track is a bank: use render_batch_banked")
     return render_batch_with_ground(states, params, cam, style)[0]
+
+
+def render_batch_banked(
+    states: EnvState,
+    params: EnvParams,
+    cam: CameraConfig = CameraConfig(),
+    style: RoadStyle = RoadStyle(),
+) -> Tensor:
+    """[B, H, W] int32 seg frames for a batch over a track bank (route /
+    lap_bank): env i renders its row `states.route_id[i]`. The kernels are
+    track-agnostic; only the prep reads the bank."""
+    if not params.track.banked:
+        raise ValueError("params.track is one track: use render_batch")
+    return render_batch_with_ground(states, params, cam, style)[0]
+
+
+# ---------------------------------------------------------------------------
+# Pose-fed ground pass (port of render_batch_pallas_v6)
+# ---------------------------------------------------------------------------
+
+
+def prep_pose(states: EnvState, params: EnvParams, cam: CameraConfig) -> Tuple[Tensor, Tensor, Tensor]:
+    """O(B) prep of the pose-fed ground pass (port of _prep_pose_v6):
+    (starts [B] int32, table [M, 8] float32, pose [B, 8] float32).
+
+    `table` bakes the track's wrap (loops) or clamp (open tracks) into
+    M = capacity + window_behind + window rows, row r holding waypoint
+    r - window_behind (x, y, fx, fy, lw, rw, 0, 0), so env b's window is
+    rows [starts[b], starts[b] + window). `pose` = (cos yaw, sin yaw,
+    cam_x, cam_y, waypoint_idx - window_behind, 0, 0, 0), with the same
+    torch operations as prep_windows."""
+    track = params.track
+    if track.banked:
+        raise ValueError("the pose-fed ground pass takes one shared track, not a bank")
+    dev = track.device
+    behind = cam.window_behind
+    m = track.capacity + behind + cam.window
+    j = torch.arange(m, dtype=torch.int32, device=dev) - behind
+    if track.is_loop:
+        rows = torch.remainder(j, track.length)
+    else:
+        rows = torch.clamp(j, 0, track.length - 1)
+    table = torch.nn.functional.pad(window_table(track)[rows.long()], (0, 2)).contiguous()
+    idx0 = states.waypoint_idx - behind  # unwrapped: the s coordinate
+    start = torch.remainder(idx0, track.length) if track.is_loop else idx0
+    starts = (start + behind).to(torch.int32).contiguous()
+    cy, sy, cam_x, cam_y = _camera_pose(states, cam)
+    zeros = torch.zeros_like(cy)
+    pose = torch.stack([cy, sy, cam_x, cam_y, idx0.to(torch.float32), zeros, zeros, zeros], 1)
+    return starts, table, pose.contiguous()
+
+
+def pose_windows(starts: Tensor, table: Tensor, pose: Tensor, window: int) -> Tuple[Tensor, Tensor]:
+    """prep_windows' (win_cols, payload) from prep_pose's outputs."""
+    ar = torch.arange(window, dtype=torch.int64, device=table.device)
+    win = table[starts.long()[:, None] + ar[None, :]]  # [B, K0, 8]
+    cy, sy, cam_x, cam_y, idx0 = (pose[:, c:c + 1] for c in range(5))
+    return _rotate_windows(win, cy, sy, cam_x, cam_y, idx0)
+
+
+def ground_pass_pose_plain(
+    starts: Tensor, table: Tensor, pose: Tensor, window: int, slab: Tensor, stripes: Tensor,
+    sky_px: int, hw: int, consts: tuple[float, ...],
+) -> Tensor:
+    """Plain PyTorch version of the pose-fed kernel: the window fetch and
+    rotation in torch, then ground_pass_plain. [B, hw] int32."""
+    win_cols, payload = pose_windows(starts, table, pose, window)
+    return ground_pass_plain(win_cols, payload, slab, stripes, sky_px, hw, consts)
+
+
+def ground_pass_pose(
+    starts: Tensor, table: Tensor, pose: Tensor, cam: CameraConfig, style: RoadStyle
+) -> Tensor:
+    """[B, H*W] int32 ground classes from prep_pose's outputs: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    slab, stripes, sky_px, _ = _device_layout(cam, str(table.device))
+    hw = cam.height * cam.width
+    consts = style_constants(style)
+    if table.device.type == "cuda":
+        return rasterizer_cuda.ground_pass_pose_cuda(
+            starts, table, pose, cam.window, slab, stripes, sky_px, hw, consts
+        )
+    if table.device.type == "cpu":
+        return ground_pass_pose_plain(starts, table, pose, cam.window, slab, stripes, sky_px, hw, consts)
+    raise ValueError(f"no pose-fed ground pass for device {table.device}")
+
+
+def render_batch_pose(
+    states: EnvState,
+    params: EnvParams,
+    cam: CameraConfig = CameraConfig(),
+    style: RoadStyle = RoadStyle(),
+) -> Tensor:
+    """[B, H*W] int32 ground frames (no billboards) of a shared-track batch
+    through the pose-fed kernel; equal to ground_pass(prep_windows(...))
+    on loops, and on open tracks wherever no window reaches before the
+    first waypoint (there it reads the first waypoint, not the padded
+    tail)."""
+    return ground_pass_pose(*prep_pose(states, params, cam), cam, style)
 
 
 def seg_to_obs(cls: Tensor) -> Tensor:

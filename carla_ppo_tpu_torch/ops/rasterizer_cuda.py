@@ -1,14 +1,17 @@
-"""CUDA wrappers of the camera's two kernels (sources in ../csrc).
+"""CUDA wrappers of the camera's kernels (sources in ../csrc).
 
-- `ground_pass_cuda`  <- rasterizer_pallas.render_batch_pallas_v5
-- `composite_cuda`    <- rasterizer_pallas.composite_billboards_pallas
+- `ground_pass_cuda`       <- rasterizer_pallas.render_batch_pallas_v5 (and
+  v4, v3d, v3c: the same function under other TPU layouts)
+- `ground_pass_pose_cuda`  <- rasterizer_pallas.render_batch_pallas_v6
+- `composite_cuda`         <- rasterizer_pallas.composite_billboards_pallas
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else, allocates its output with torch.empty, launches on the
 current stream, raises on a non-zero launch status, and adds one to its
 entry in LAUNCHES per launch. Their plain PyTorch versions live in
-ops/rasterizer.py (`ground_pass_plain`, `composite_plain`); the dispatch
-there takes the plain version only for CPU tensors.
+ops/rasterizer.py (`ground_pass_plain`, `ground_pass_pose_plain`,
+`composite_plain`); the dispatch there takes the plain version only for
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from torch import Tensor
 from carla_ppo_tpu_torch.utils.cuda_build import load_library
 
 # Launch counts per kernel; callers zero them with reset_launch_counts().
-LAUNCHES = {"ground_pass": 0, "composite": 0}
+LAUNCHES = {"ground_pass": 0, "ground_pass_pose": 0, "composite": 0}
 
 
 def reset_launch_counts() -> None:
@@ -74,6 +77,44 @@ def ground_pass_cuda(
     )
     _raise_on(status, "ground_pass")
     LAUNCHES["ground_pass"] += 1
+    return out
+
+
+def ground_pass_pose_cuda(
+    starts: Tensor,
+    table: Tensor,
+    pose: Tensor,
+    window: int,
+    slab: Tensor,
+    stripes: Tensor,
+    sky_px: int,
+    hw: int,
+    style_consts: tuple[float, ...],
+) -> Tensor:
+    """[B, hw] int32 class ids from the wrap-baked table and per-env poses
+    (see rasterizer.ground_pass_pose_plain for the function)."""
+    B = starts.shape[0]
+    M = table.shape[0]
+    n_stripes = stripes.shape[0]
+    ground_px = slab.shape[1]
+    _check("starts", starts, torch.int32, (B,))
+    _check("table", table, torch.float32, (M, 8))
+    _check("pose", pose, torch.float32, (B, 8))
+    _check("slab", slab, torch.float32, (2, ground_px))
+    _check("stripes", stripes, torch.int32, (n_stripes, 3))
+    if sky_px + ground_px != hw:
+        raise ValueError(f"sky_px {sky_px} + ground_px {ground_px} != hw {hw}")
+    if len(style_consts) != 8:
+        raise ValueError("style_consts must hold 8 floats")
+    out = torch.empty((B, hw), dtype=torch.int32, device=starts.device)
+    lib = load_library()
+    status = lib.launch_ground_pass_pose(
+        starts.data_ptr(), table.data_ptr(), M, pose.data_ptr(), window, slab.data_ptr(),
+        stripes.data_ptr(), n_stripes, sky_px, ground_px, hw, B, *style_consts,
+        out.data_ptr(), torch.cuda.current_stream(starts.device).cuda_stream,
+    )
+    _raise_on(status, "ground_pass_pose")
+    LAUNCHES["ground_pass_pose"] += 1
     return out
 
 

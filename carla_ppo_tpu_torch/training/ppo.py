@@ -26,19 +26,23 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 import torch
 from torch import Tensor
 
-from carla_ppo_tpu_torch.envs import lap_env
+from carla_ppo_tpu_torch.envs import lap_bank_env, lap_env, route_env
 from carla_ppo_tpu_torch.envs.types import EnvParams, EnvState, TerminationReason
 from carla_ppo_tpu_torch.models.policy import ActorCritic, gaussian_entropy, gaussian_log_prob
 from carla_ppo_tpu_torch.ops import gae
 from carla_ppo_tpu_torch.ops.running_stats import RunningMoments, normalize_rewards
 
 
+ENV_KINDS = {"lap": lap_env, "route": route_env, "lap_bank": lap_bank_env}
+
+
 @dataclasses.dataclass(frozen=True)
 class PPOConfig:
     """Hyperparameters; the same fields and defaults as the JAX PPOConfig.
 
-    Ported values: env_kind "lap", obs_fn "vector" (or a LatentObs), the
-    scan-form GAE (use_associative_gae must stay False)."""
+    Ported values: env_kind "lap", "route" or "lap_bank" (the last two on
+    a track bank), obs_fn "vector" (or a LatentObs), the scan-form GAE
+    (use_associative_gae must stay False)."""
 
     learning_rate: float = 1e-4
     lr_decay: float = 1.0
@@ -69,8 +73,9 @@ class PPOConfig:
         return self.num_epochs * self.num_minibatches
 
     def __post_init__(self):
-        if self.env_kind != "lap":
-            raise NotImplementedError(f"env_kind {self.env_kind!r} is not ported (only 'lap')")
+        if self.env_kind not in ENV_KINDS:
+            raise NotImplementedError(
+                f"env_kind {self.env_kind!r} is not ported (one of {sorted(ENV_KINDS)})")
         if self.use_associative_gae:
             raise NotImplementedError("associative GAE is not ported (scan form only)")
 
@@ -88,15 +93,20 @@ class LatentObs:
         return self.vae_model.z_dim + len(self.measurements)
 
 
+def _env_module(config: PPOConfig):
+    return ENV_KINDS[config.env_kind]
+
+
 def make_obs_fn(latent_obs: LatentObs | None, config: PPOConfig) -> Callable[[EnvState, EnvParams], Tensor]:
     """Batched obs builder: (env_states, env_params) -> [B, obs_dim]."""
     if latent_obs is None:
-        return lambda s, p: lap_env.observe(s, p, config.obs_fn)
+        env = _env_module(config)
+        return lambda s, p: env.observe(s, p, config.obs_fn)
     from carla_ppo_tpu_torch.models.vae_common import create_encode_batch_fn
 
     return create_encode_batch_fn(
         latent_obs.vae_model, measurements_to_include=latent_obs.measurements,
-        source=latent_obs.source,
+        banked=config.env_kind in ("route", "lap_bank"), source=latent_obs.source,
     )
 
 
@@ -224,6 +234,7 @@ def rollout(
 
     Returns (env_states, trajectory, bootstrap_value, episodic_metrics);
     episodic metrics average the episodes that finished in the rollout."""
+    env = _env_module(config)
     obs_builder = make_obs_fn(latent_obs, config)
     step_obs = None if latent_obs is not None else config.obs_fn
     obs = obs_builder(env_states, env_params)
@@ -232,7 +243,7 @@ def rollout(
     ep: Dict[str, list] = {k: [] for k in ("done", "rew", "dist", "speed", "dev", "laps", "len", "ot")}
     for _ in range(horizon):
         action, logp, value = model.sample(obs, generator)
-        env_states, out = lap_env.autoreset_step(
+        env_states, out = env.autoreset_step(
             env_states, action, env_params, generator, obs_fn=step_obs
         )
         next_obs = obs_builder(env_states, env_params) if latent_obs is not None else out.obs
@@ -491,13 +502,28 @@ def evaluate(
     latent_obs: LatentObs | None = None,
     chunk: int = 256,
 ) -> Dict[str, Tensor]:
-    """Greedy evaluation episodes (spawn at waypoint 0, act with the mean),
-    until every env finished or `max_steps`; the JAX package's eval metric
-    set. The loop checks for early exit once per `chunk` steps."""
+    """Greedy evaluation episodes (spawn at waypoint 0 or the route start,
+    act with the mean), until every env finished or `max_steps`; the JAX
+    package's eval metric set. Lap-bank evals assign the bank's tracks
+    round-robin and add `eval/laps_per_track` ([n_tracks]). The loop
+    checks for early exit once per `chunk` steps."""
     obs_builder = make_obs_fn(latent_obs, config)
     step_obs = None if latent_obs is not None else config.obs_fn
-    states = lap_env.reset(env_params, generator, checkpoint_idx=0, is_training=False,
-                           batch=num_envs)
+    track_ids = None
+    if config.env_kind == "route":
+        states = route_env.reset(env_params, generator, is_training=False, batch=num_envs)
+    elif config.env_kind == "lap_bank":
+        track_ids = lap_bank_env.round_robin(num_envs, env_params)
+        states = lap_bank_env.reset(env_params, generator, is_training=False, track_id=track_ids)
+    else:
+        states = lap_env.reset(env_params, generator, checkpoint_idx=0, is_training=False,
+                               batch=num_envs)
+
+    def env_step(s, a):
+        if config.env_kind == "route":
+            return route_env.step(s, a, env_params, generator, obs_fn=step_obs)
+        return lap_env.step(s, a, env_params, obs_fn=step_obs)
+
     obs = obs_builder(states, env_params)
     dev = obs.device
     done = torch.zeros(num_envs, dtype=torch.bool, device=dev)
@@ -507,7 +533,7 @@ def evaluate(
         for _ in range(chunk):
             active = ~done & (t < max_steps)
             mean = model(obs)[0]
-            next_states, out = lap_env.step(states, mean, env_params, obs_fn=step_obs)
+            next_states, out = env_step(states, mean)
             new_obs = obs_builder(next_states, env_params) if latent_obs is not None else out.obs
             newly = out.done & active
             fresh = _snap_of(out)
@@ -518,16 +544,18 @@ def evaluate(
             t += 1
     live = _snap_of(states)
     snap = {k: torch.where(done, snap[k], live[k]) for k in _SNAP_KEYS}
-    return evaluate_metrics(snap, done)
+    return evaluate_metrics(snap, done, track_ids, env_params.track.num_tracks)
 
 
-def evaluate_metrics(snap: Dict[str, Tensor], done: Tensor) -> Dict[str, Tensor]:
+def evaluate_metrics(
+    snap: Dict[str, Tensor], done: Tensor, track_ids: Tensor | None = None, n_tracks: int = 0
+) -> Dict[str, Tensor]:
     steps = torch.clamp(snap["steps"], min=1.0)
     dev = torch.clamp(snap["deviation"], min=1e-6)
     reasons = torch.nn.functional.one_hot(
         snap["reason"].to(torch.int64), len(TerminationReason)
     ).to(torch.float32).sum(0)
-    return {
+    metrics = {
         "eval/reward": snap["reward"].mean(),
         "eval/distance_traveled": snap["distance"].mean(),
         "eval/average_speed": (3.6 * snap["speed_accum"] / steps).mean(),
@@ -540,11 +568,22 @@ def evaluate_metrics(snap: Dict[str, Tensor], done: Tensor) -> Dict[str, Tensor]
         "eval/overtakes": snap["overtakes"].mean(),
         "eval/termination_reasons": reasons,
     }
+    if track_ids is not None:
+        onehot = torch.nn.functional.one_hot(track_ids.long(), n_tracks).to(torch.float32)
+        counts = torch.clamp(onehot.sum(0), min=1.0)
+        metrics["eval/laps_per_track"] = (snap["laps"] @ onehot) / counts
+    return metrics
 
 
 def init_env_batch(env_params: EnvParams, num_envs: int, generator: torch.Generator,
                    env_kind: str = "lap") -> EnvState:
+    """Training resets: at checkpoint 0 (lap), on random routes (route), or
+    at checkpoint 0 of round-robin tracks (lap_bank)."""
+    if env_kind == "route":
+        return route_env.reset(env_params, generator, is_training=True, batch=num_envs)
+    if env_kind == "lap_bank":
+        return lap_bank_env.init_env_batch(env_params, num_envs, generator)
     if env_kind != "lap":
-        raise NotImplementedError(f"env_kind {env_kind!r} is not ported (only 'lap')")
+        raise NotImplementedError(f"env_kind {env_kind!r} is not ported")
     return lap_env.init_env_batch(env_params, num_envs, generator)
 

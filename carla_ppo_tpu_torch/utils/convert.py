@@ -83,14 +83,15 @@ def vae_encoder_state_dict(
 
 _VEHICLE_FIELDS = ("pos", "yaw", "vx", "vy", "yaw_rate", "steer_angle")
 _INT_FIELDS = {"waypoint_idx", "start_waypoint_idx", "checkpoint_idx", "step_count",
-               "termination_reason"}
+               "termination_reason", "route_id", "num_routes_completed"}
 _BOOL_FIELDS = {"terminal", "truncated", "is_training", "collision", "lane_invasion"}
 
 
 def env_state_from_arrays(fields: Mapping[str, Any], device="cpu") -> EnvState:
     """Batched EnvState from a mapping of the JAX EnvState's field names to
-    [B, ...] arrays (`vehicle` a mapping of its own). Fields the port does
-    not keep (rng, route fields) are ignored."""
+    [B, ...] arrays (`vehicle` a mapping of its own), route fields
+    included. The JAX state's `rng` is ignored: the port draws from
+    explicit torch.Generators."""
     dev = torch.device(device)
 
     def conv(name, x):

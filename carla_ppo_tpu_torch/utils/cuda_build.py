@@ -5,7 +5,8 @@ launchers over raw pointers; they include no PyTorch header, so each file
 compiles in seconds. The build runs at first use:
 
 - into `<repo>/build/cuda/<hash>/` (git-ignored), where the hash covers the
-  sources and the flags, so an edited source never loads a stale library;
+  sources, the headers they include and the flags, so an edited source or
+  header never loads a stale library;
 - one `nvcc -c` per source, all started together, then one link;
 - each process compiles in its own `tmp-<pid>` directory and publishes the
   library with an atomic rename, so there is no lock file to wait on; a
@@ -28,7 +29,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "cuda"
 LIB_NAME = "libcarla_ppo_torch_kernels.so"
-SOURCES = ("ground_pass.cu", "composite.cu")
+SOURCES = ("ground_pass.cu", "ground_pass_pose.cu", "composite.cu")
+HEADERS = ("ground_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -53,11 +55,11 @@ def find_nvcc() -> str:
     return found
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = CSRC) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -145,6 +147,9 @@ def load_library() -> ctypes.CDLL:
     lib.launch_ground_pass.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                        _F, _F, _F, _F, _F, _F, _F, _F, _P, _P]
     lib.launch_ground_pass.restype = _I
+    lib.launch_ground_pass_pose.argtypes = [_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                                            _F, _F, _F, _F, _F, _F, _F, _F, _P, _P]
+    lib.launch_ground_pass_pose.restype = _I
     lib.launch_composite.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P]
     lib.launch_composite.restype = _I
     return lib

@@ -5,27 +5,42 @@
 
 Phases, one line each; any failure raises and exits non-zero:
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build both CUDA kernels with plain nvcc (seconds taken);
+  2. build the three CUDA kernels with plain nvcc (seconds taken);
   3. ground-pass kernel vs its plain PyTorch version at B=1024 on fresh
      resets, after 64 driven steps and across the loop's wrap corner:
      mismatched pixels must be 0 (both sides round every op on its own:
-     the kernel is built with -fmad=false);
+     the kernels are built with -fmad=false); on the same batches the
+     pose-fed ground pass (prep_pose + ground_pass_pose.cu) must equal its
+     plain version and the ground-pass kernel's output;
   4. composite kernel vs its plain version on the same batches (props on):
      exact int32 equality;
-  5. kernel and plain times at B=1024 (CUDA events) and each kernel's
-     bound on an H100 (bytes over 3.35 TB/s vs instructions over the
-     FP32 or INT32 instruction rate);
-  6. the main path: latent-observation lap PPO at PPOConfig defaults
+  5. the ground-pass kernel on the other contracts of the TPU package's
+     ground kernels, 0 mismatched pixels against the plain version: the
+     84x84 pixel-policy camera and the 180x320 / -15 deg chase camera
+     (Pallas v4), a banked route batch, where the composite must also draw
+     billboards (v3d), and B=1000 (v3c);
+  6. kernel and plain times (CUDA events) at each row's shapes and each
+     kernel's bound on an H100 (bytes over 3.35 TB/s vs instructions over
+     the FP32 or INT32 instruction rate);
+  7. the lap path: latent-observation lap PPO at PPOConfig defaults
      (1024 envs, horizon 128, 3 epochs x 4 minibatches) with a seeded
      frozen ConvVAE (de-prop seg VAE widths: 1 channel, z 64, 32/64/128/256)
      and a seeded 500/300 ActorCritic: 2 train_iterations, then a greedy
-     evaluate of 300 steps; both kernels must have launched on that path, losses and
-     returns must be finite; env-steps/s from CUDA events, and the split of
-     each iteration into rollout and update;
-  7. where a rollout step's time goes: the real functions that
+     evaluate of 300 steps; both kernels must have launched on that path,
+     losses and returns must be finite; env-steps/s from CUDA events, and
+     the split of each iteration into rollout and update;
+  8. where a lap rollout step's time goes: the real functions that
      `ppo.rollout` calls are bracketed by CUDA events for 20 steps, then
      torch.profiler reads kernel time by name over 10 more;
-  8. the kernels line (JSON), then the last line
+  9. the route path: PPOConfig(env_kind="route", normalize_rewards=True)
+     on a bank of 64 random routes (capacity 1024, props), 2
+     train_iterations and a 300-step greedy evaluate; the lap-bank path:
+     16 lap circuits (capacity 2048, props), 1 train_iteration and an
+     evaluate reporting eval/laps_per_track for each of the 16 tracks; the
+     pose-fed camera, the unaligned camera and the odd batch, each driven
+     over a short lap rollout through its entry point. Each path starts
+     with every launch count at 0 and must launch its kernels;
+ 10. the kernels line (JSON, one row per TPU kernel), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Float32 matmuls and convolutions run in full float32 (TF32 off for both).
@@ -51,9 +66,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12 / 2
 INT32_OPS_PER_S = 67e12 / 4
 BATCH = 1024
+ODD_BATCH = 1000
 EVAL_STEPS = 300  # one evaluate chunk: every step runs, also after all envs finished
 STAGE_STEPS = 20
 PROFILE_STEPS = 10
+ENTRY_STEPS = 16  # env steps driven through each camera entry point of phase 9
+PIXEL_CAMERA = dict(height=84, width=84)
+CHASE_CAMERA = dict(height=180, width=320, mount_forward=-5.5, mount_height=2.8, pitch_deg=-15.0)
+PALLAS = "carla_ppo_tpu/ops/rasterizer_pallas.py"
+CSRC = "carla_ppo_tpu_torch/csrc"
 
 
 def log(msg: str) -> None:
@@ -117,6 +138,76 @@ def span_ms(spans) -> tuple[float, float]:
     return (sum(s.elapsed_time(e) for s, e, _ in spans), sum(h for _, _, h in spans) * 1e3)
 
 
+def bound(nbytes: float, ops: float, rate: float) -> tuple[float, str, str]:
+    """(least ms, what bounds it, a log fragment) for a kernel call."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    note = (f"{int(nbytes)} bytes -> {t_bytes:.6f} ms, {int(ops)} ops at {rate:.4g}/s "
+            f"-> {t_ops:.6f} ms")
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), note
+
+
+def ground_ops(batch: int, stripes, ground_px: int, extra_per_env: int = 0) -> int:
+    """sub, sub, mul, mul, add, cmp per distance evaluation; ~40 per pixel
+    for the fetch, Frenet and ladder tail."""
+    n_dist = sum(K * P for K, _, P in stripes.tolist())  # distance evaluations per env
+    return batch * (6 * n_dist + 40 * ground_px + extra_per_env)
+
+
+def drive_train(torch, ppo, RC, log_name, params, config, latent, model, gen, iterations,
+                eval_gen, smi):
+    """Train `iterations` PPO iterations and run a greedy evaluate on one
+    path with every launch count set to 0 first; returns (train state,
+    envs, eval metrics, launch counts, seconds training, seconds eval)."""
+    train_state = ppo.create_train_state(model, config, gen)
+    envs = ppo.init_env_batch(params, config.num_envs, train_state.generator, config.env_kind)
+    RC.reset_launch_counts()
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    start.record()
+    metrics = []
+    with timed_stages(torch, [(ppo, "rollout", "rollout"), (ppo, "ppo_update", "update")]) as phases:
+        for _ in range(iterations):
+            train_state, envs, m = ppo.train_iteration(train_state, envs, params, config,
+                                                       latent_obs=latent)
+            metrics.append(m)
+    mid.record()
+    ev = ppo.evaluate(model, params, eval_gen, num_envs=config.num_envs, max_steps=EVAL_STEPS,
+                      config=config, latent_obs=latent, chunk=EVAL_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    launches = dict(RC.LAUNCHES)
+    train_s = start.elapsed_time(mid) / 1e3
+    eval_s = mid.elapsed_time(end) / 1e3
+    tag = "" if log_name == "lap" else f" {log_name}"
+    for i, m in enumerate(metrics):
+        vals = {k: m[k].item() for k in ("train_loss/loss", "train_loss/policy", "train_loss/value",
+                                         "train/returns", "train/approx_kl", "train/reward")}
+        log(f"[train{tag}] iteration {i}: " + " ".join(f"{k}={v:.6g}" for k, v in vals.items()))
+        bad = [k for k, v in vals.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite training metrics on the {log_name} path: {bad}")
+    obs = ppo.make_obs_fn(latent, config)(envs, params)
+    if obs.shape != (config.num_envs, latent.obs_dim) or not bool(torch.isfinite(obs).all()):
+        raise AssertionError(f"bad latent observation batch {tuple(obs.shape)} on the {log_name} path")
+    ev_vals = {k: v.item() for k, v in ev.items() if v.ndim == 0}
+    log(f"[eval{tag}] " + " ".join(f"{k}={v:.6g}" for k, v in ev_vals.items()))
+    if not all(math.isfinite(v) for v in ev_vals.values()):
+        raise AssertionError(f"non-finite eval metrics on the {log_name} path")
+    log(f"[launches] {log_name} path: {launches}")
+    if launches["ground_pass"] <= 0 or launches["composite"] <= 0:
+        raise AssertionError(f"a kernel of the {log_name} path never launched: {launches}")
+    steps = iterations * config.horizon * config.num_envs
+    log(f"[throughput{tag}] {smi}: train {steps} env-steps in {train_s:.3f} s = "
+        f"{steps / train_s:.1f} env-steps/s (rollout + update); greedy eval {EVAL_STEPS} steps "
+        f"x {config.num_envs} envs in {eval_s:.3f} s = {EVAL_STEPS * config.num_envs / eval_s:.1f} "
+        f"env-steps/s (envs that finished stay frozen but are still rendered)")
+    for name in ("rollout", "update"):
+        per_it = ", ".join(f"{s.elapsed_time(e):.3f} ms ({h * 1e3:.3f} ms host)"
+                           for s, e, h in phases[name])
+        log(f"[throughput{tag}] {smi}: {name} of iterations {', '.join(map(str, range(iterations)))} "
+            f"between CUDA events: {per_it}")
+    return train_state, envs, ev, launches
+
+
 def main() -> int:
     import torch
 
@@ -124,7 +215,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from carla_ppo_tpu_torch.envs import lap_env, track
+    from carla_ppo_tpu_torch.envs import lap_bank_env, lap_env, route_env, route_planner, track
     from carla_ppo_tpu_torch.envs.types import EnvParams, VehicleState
     from carla_ppo_tpu_torch.models.policy import ActorCritic
     from carla_ppo_tpu_torch.models.vae import VAE
@@ -149,7 +240,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = cuda_build.build()
     cuda_build.load_library()
-    log(f"[build] {lib_path} ready in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] {lib_path} ready in {time.perf_counter() - t0:.2f} s ({len(cuda_build.SOURCES)} sources)")
 
     # 3./4. Parity at B=1024.
     cam, style = R.CameraConfig(), R.RoadStyle()
@@ -174,7 +265,8 @@ def main() -> int:
     consts = R.style_constants(style)
     hw = cam.height * cam.width
     timing_inputs = {}
-    errs = {"ground_pass": 0, "composite": 0}  # max |kernel - plain| over class ids
+    # max |kernel - plain| over class ids, per row of the kernels line
+    errs = defaultdict(int)
     for name, states in batches.items():
         win_cols, payload = R.prep_windows(states, params, cam)
         plain = R.ground_pass_plain(win_cols, payload, slab, stripes, sky_px, hw, consts)
@@ -185,6 +277,18 @@ def main() -> int:
         log(f"[ground_pass parity] {name}: B={BATCH} mismatched pixels {bad} of {got.numel()}")
         if bad:
             raise AssertionError(f"ground-pass kernel disagrees with its plain version on {name}")
+        starts, table, pose = R.prep_pose(states, params, cam)
+        p_plain = R.ground_pass_pose_plain(starts, table, pose, cam.window, slab, stripes, sky_px, hw,
+                                           consts)
+        p_got = RC.ground_pass_pose_cuda(starts, table, pose, cam.window, slab, stripes, sky_px, hw,
+                                         consts)
+        torch.cuda.synchronize()
+        errs["ground_pass_pose"] = max(errs["ground_pass_pose"], int((p_got - p_plain).abs().max()))
+        p_bad, p_vs = int((p_got != p_plain).sum()), int((p_got != got).sum())
+        log(f"[ground_pass_pose parity] {name}: B={BATCH} mismatched pixels {p_bad} against its "
+            f"plain version, {p_vs} against ground_pass.cu")
+        if p_bad or p_vs:
+            raise AssertionError(f"pose-fed ground kernel check failed on {name}")
         rows = R.prep_candidates(states, params, cam)
         c_plain = R.composite_plain(rows, depth_rows, got, cam.width)
         c_got = RC.composite_cuda(rows, depth_rows, got, cam.width)
@@ -195,84 +299,103 @@ def main() -> int:
         log(f"[composite parity] {name}: B={BATCH} mismatched pixels {c_bad}, billboard pixels {drawn}")
         if c_bad or not drawn:
             raise AssertionError(f"composite kernel check failed on {name}")
-        timing_inputs[name] = (win_cols, payload, rows, got)
+        timing_inputs[name] = (win_cols, payload, rows, got, (starts, table, pose))
 
-    # 5. Kernel times at the main path's shape (the driven batch).
-    win_cols, payload, rows, ground = timing_inputs["driven"]
+    # 5. The ground-pass kernel on the other contracts: unaligned cameras,
+    # a banked route batch (with the composite), an odd batch size.
+    bank = route_planner.make_route_bank(route_planner.make_town(seed=0), n_routes=64,
+                                         capacity=1024, props=True, device=dev)
+    route_params = route_env.route_env_params(bank)
+    routed = route_env.reset(route_params, gen, batch=BATCH)
+    for _ in range(64):
+        act = torch.rand(BATCH, 2, generator=gen, device=dev)
+        act[:, 0] = act[:, 0] * 0.4 - 0.2
+        routed, _ = route_env.autoreset_step(routed, act, route_params, gen, obs_fn=None)
+    odd = _first(driven, ODD_BATCH)
+    contracts = {  # row: (label, states, params, camera)
+        "v4_pixel_camera": ("84x84 camera", driven, params, R.CameraConfig(**PIXEL_CAMERA)),
+        "v4_chase_camera": ("180x320 -15 deg chase camera", driven, params,
+                            R.CameraConfig(**CHASE_CAMERA)),
+        "v3d_banked": ("banked route batch", routed, route_params, cam),
+        "v3c_odd_batch": (f"B={ODD_BATCH}", odd, params, cam),
+    }
+    contract_inputs = {}
+    for key, (label, states, prm, ccam) in contracts.items():
+        c_slab, c_stripes, c_sky, c_depth = R._device_layout(ccam, str(dev))
+        c_hw = ccam.height * ccam.width
+        win_cols, payload = R.prep_windows(states, prm, ccam)
+        plain = R.ground_pass_plain(win_cols, payload, c_slab, c_stripes, c_sky, c_hw, consts)
+        got = RC.ground_pass_cuda(win_cols, payload, c_slab, c_stripes, c_sky, c_hw, consts)
+        torch.cuda.synchronize()
+        errs[key] = int((got - plain).abs().max())
+        bad = int((got != plain).sum())
+        log(f"[ground_pass parity] {label}: B={states.batch_size} {ccam.height}x{ccam.width} "
+            f"mismatched pixels {bad} of {got.numel()}")
+        if bad:
+            raise AssertionError(f"ground-pass kernel disagrees with its plain version on {label}")
+        if key == "v3d_banked":
+            rows = R.prep_candidates(states, prm, ccam)
+            c_plain = R.composite_plain(rows, c_depth, got, ccam.width)
+            c_got = RC.composite_cuda(rows, c_depth, got, ccam.width)
+            torch.cuda.synchronize()
+            c_bad, drawn = int((c_got != c_plain).sum()), int((c_got != got).sum())
+            log(f"[composite parity] {label}: B={BATCH} mismatched pixels {c_bad}, billboard pixels {drawn}")
+            if c_bad or not drawn:
+                raise AssertionError(f"composite kernel check failed on {label}")
+        contract_inputs[key] = (win_cols, payload, c_slab, c_stripes, c_sky, c_hw)
+
+    # 6. Kernel times at each row's shapes, plain times, bounds.
+    win_cols, payload, rows, ground, pose_in = timing_inputs["driven"]
     g_ms = cuda_ms(torch, lambda: RC.ground_pass_cuda(win_cols, payload, slab, stripes, sky_px, hw, consts), 50)
     g_plain_ms = cuda_ms(torch, lambda: R.ground_pass_plain(win_cols, payload, slab, stripes, sky_px, hw, consts), 3, 1)
     c_ms = cuda_ms(torch, lambda: RC.composite_cuda(rows, depth_rows, ground, cam.width), 50)
     c_plain_ms = cuda_ms(torch, lambda: R.composite_plain(rows, depth_rows, ground, cam.width), 3, 1)
-    n_dist = sum(K * P for K, _, P in stripes.tolist())  # distance evaluations per env
+    p_ms = cuda_ms(torch, lambda: RC.ground_pass_pose_cuda(*pose_in, cam.window, slab, stripes, sky_px, hw, consts), 50)
+    p_plain_ms = cuda_ms(torch, lambda: R.ground_pass_pose_plain(*pose_in, cam.window, slab, stripes, sky_px, hw, consts), 3, 1)
     ground_px = slab.shape[1]
     g_bytes = 4 * (win_cols.numel() + payload.numel() + slab.numel() + stripes.numel() + BATCH * hw)
-    g_ops = BATCH * (6 * n_dist + 40 * ground_px)  # sub,sub,mul,mul,add,cmp per distance; ~40 per pixel tail
     c_bytes = 4 * (rows.numel() + depth_rows.numel() + 2 * BATCH * hw)
     c_ops = 2 * BATCH * hw * rows.shape[1]  # one int32 max + one min per candidate-pixel
+    starts, table, pose = pose_in
+    # The block reads its window's table rows once: window x 8 floats per env.
+    p_bytes = 4 * (starts.numel() + BATCH * cam.window * 8 + pose.numel() + slab.numel()
+                   + stripes.numel() + BATCH * hw)
+    # ~24 float operations per window row to rotate it into the camera frame.
+    p_ops = ground_ops(BATCH, stripes, ground_px, 24 * cam.window)
+    times = {"ground_pass": (g_ms, g_plain_ms), "composite": (c_ms, c_plain_ms),
+             "ground_pass_pose": (p_ms, p_plain_ms)}
     bounds = {}
-    for name, nbytes, ops, rate in (("ground_pass", g_bytes, g_ops, FP32_OPS_PER_S),
-                                    ("composite", c_bytes, c_ops, INT32_OPS_PER_S)):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
-        bounds[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-        log(f"[bound] {name}: {nbytes} bytes -> {t_bytes:.6f} ms, {ops} ops at {rate:.4g}/s "
-            f"-> {t_ops:.6f} ms")
+    for name, nbytes, ops, rate in (("ground_pass", g_bytes, ground_ops(BATCH, stripes, ground_px), FP32_OPS_PER_S),
+                                    ("composite", c_bytes, c_ops, INT32_OPS_PER_S),
+                                    ("ground_pass_pose", p_bytes, p_ops, FP32_OPS_PER_S)):
+        bounds[name] = bound(nbytes, ops, rate)
+        log(f"[bound] {name}: {bounds[name][2]}")
     log(f"[timing] {smi}: ground_pass {g_ms:.6f} ms (plain {g_plain_ms:.3f} ms), "
         f"composite {c_ms:.6f} ms (plain {c_plain_ms:.3f} ms) at B={BATCH}")
-    del timing_inputs, batches, fresh, driven, wrap
+    log(f"[timing] {smi}: ground_pass_pose {p_ms:.6f} ms (plain {p_plain_ms:.3f} ms) at B={BATCH}")
+    for key, (wc, pl, c_slab, c_stripes, c_sky, c_hw) in contract_inputs.items():
+        B = wc.shape[0]
+        k_ms = cuda_ms(torch, lambda: RC.ground_pass_cuda(wc, pl, c_slab, c_stripes, c_sky, c_hw, consts), 50)
+        k_plain_ms = cuda_ms(torch, lambda: R.ground_pass_plain(wc, pl, c_slab, c_stripes, c_sky, c_hw, consts), 3, 1)
+        k_bytes = 4 * (wc.numel() + pl.numel() + c_slab.numel() + c_stripes.numel() + B * c_hw)
+        times[key] = (k_ms, k_plain_ms)
+        bounds[key] = bound(k_bytes, ground_ops(B, c_stripes, c_slab.shape[1]), FP32_OPS_PER_S)
+        log(f"[bound] ground_pass on {contracts[key][0]}: {bounds[key][2]}")
+        log(f"[timing] {smi}: ground_pass on {contracts[key][0]} {k_ms:.6f} ms "
+            f"(plain {k_plain_ms:.3f} ms) at B={B}")
+    del timing_inputs, contract_inputs, batches, fresh, wrap, routed, odd
 
-    # 6. The main path.
+    # 7. The lap path.
     seed_gen = make_generator(1, "cpu")  # weights are made on the host, then moved
     vae = VAE(source_shape=(cam.height, cam.width, 1), z_dim=64, generator=seed_gen).to(dev).eval()
     latent = ppo.LatentObs(vae_model=vae)
     config = ppo.PPOConfig()
     model = ActorCritic(latent.obs_dim, generator=seed_gen).to(dev)
-    train_state = ppo.create_train_state(model, config, make_generator(2, dev))
-    envs = ppo.init_env_batch(params, config.num_envs, train_state.generator)
-    RC.reset_launch_counts()
-    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    start.record()
-    metrics = []
-    with timed_stages(torch, [(ppo, "rollout", "rollout"), (ppo, "ppo_update", "update")]) as phases:
-        for _ in range(2):
-            train_state, envs, m = ppo.train_iteration(train_state, envs, params, config,
-                                                       latent_obs=latent)
-            metrics.append(m)
-    mid.record()
-    ev = ppo.evaluate(model, params, make_generator(3, dev), num_envs=config.num_envs,
-                      max_steps=EVAL_STEPS, config=config, latent_obs=latent, chunk=EVAL_STEPS)
-    end.record()
-    torch.cuda.synchronize()
-    launches = dict(RC.LAUNCHES)
-    train_s = start.elapsed_time(mid) / 1e3
-    eval_s = mid.elapsed_time(end) / 1e3
-    for i, m in enumerate(metrics):
-        vals = {k: m[k].item() for k in ("train_loss/loss", "train_loss/policy", "train_loss/value",
-                                         "train/returns", "train/approx_kl", "train/reward")}
-        log(f"[train] iteration {i}: " + " ".join(f"{k}={v:.6g}" for k, v in vals.items()))
-        bad = [k for k, v in vals.items() if not math.isfinite(v)]
-        if bad:
-            raise AssertionError(f"non-finite training metrics {bad}")
-    obs = ppo.make_obs_fn(latent, config)(envs, params)
-    if obs.shape != (config.num_envs, latent.obs_dim) or not bool(torch.isfinite(obs).all()):
-        raise AssertionError(f"bad latent observation batch {tuple(obs.shape)}")
-    ev_vals = {k: v.item() for k, v in ev.items() if v.ndim == 0}
-    log("[eval] " + " ".join(f"{k}={v:.6g}" for k, v in ev_vals.items()))
-    if not all(math.isfinite(v) for v in ev_vals.values()):
-        raise AssertionError("non-finite eval metrics")
-    log(f"[launches] main path: {launches}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    steps = 2 * config.horizon * config.num_envs
-    log(f"[throughput] {smi}: train {steps} env-steps in {train_s:.3f} s = "
-        f"{steps / train_s:.1f} env-steps/s (rollout + update); greedy eval {EVAL_STEPS} steps "
-        f"x {config.num_envs} envs in {eval_s:.3f} s = {EVAL_STEPS * config.num_envs / eval_s:.1f} "
-        f"env-steps/s (envs that finished stay frozen but are still rendered)")
-    for name in ("rollout", "update"):
-        per_it = ", ".join(f"{s.elapsed_time(e):.3f} ms ({h * 1e3:.3f} ms host)"
-                           for s, e, h in phases[name])
-        log(f"[throughput] {smi}: {name} of iterations 0, 1 between CUDA events: {per_it}")
+    train_state, envs, _, lap_launches = drive_train(
+        torch, ppo, RC, "lap", params, config, latent, model, make_generator(2, dev), 2,
+        make_generator(3, dev), smi)
 
-    # 7. Where a rollout step's time goes, on the real functions of ppo.rollout.
+    # 8. Where a lap rollout step's time goes, on the real functions of ppo.rollout.
     gen = train_state.generator
     stages = [(model, "sample", "policy"), (lap_env, "autoreset_step", "env"),
               (R, "prep_windows", "prep_windows"), (R, "ground_pass", "ground_pass"),
@@ -316,24 +439,93 @@ def main() -> int:
         f"{100 * busy_ms / step_ms:.1f}% device busy")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"[stages]   {ms:8.4f} ms/step  {n:5.1f}/step  {name[:90]}")
+    del envs, train_state
 
-    # 8. Results.
-    times = {"ground_pass": (g_ms, g_plain_ms), "composite": (c_ms, c_plain_ms)}
-    sources = {"ground_pass": ("carla_ppo_tpu_torch/csrc/ground_pass.cu",
-                               "carla_ppo_tpu/ops/rasterizer_pallas.py:698"),
-               "composite": ("carla_ppo_tpu_torch/csrc/composite.cu",
-                             "carla_ppo_tpu/ops/rasterizer_pallas.py:1290")}
+    # 9. The route path, the lap-bank path and the camera entry points.
+    route_config = ppo.PPOConfig(env_kind="route", normalize_rewards=True)
+    seed_gen = make_generator(4, "cpu")
+    route_model = ActorCritic(latent.obs_dim, generator=seed_gen).to(dev)
+    _, _, _, route_launches = drive_train(
+        torch, ppo, RC, "route", route_params, route_config, latent, route_model,
+        make_generator(5, dev), 2, make_generator(6, dev), smi)
+
+    lap_bank = lap_bank_env.make_lap_bank(n_tracks=16, capacity=2048, props=True, device=dev)
+    bank_params = lap_bank_env.lap_bank_params(lap_bank)
+    bank_config = ppo.PPOConfig(env_kind="lap_bank")
+    bank_model = ActorCritic(latent.obs_dim, generator=seed_gen).to(dev)
+    _, _, bank_ev, bank_launches = drive_train(
+        torch, ppo, RC, "lap_bank", bank_params, bank_config, latent, bank_model,
+        make_generator(7, dev), 1, make_generator(8, dev), smi)
+    per_track = bank_ev["eval/laps_per_track"]
+    log(f"[eval lap_bank] eval/laps_per_track ({per_track.numel()} tracks): "
+        + " ".join(f"{v:.6g}" for v in per_track.tolist()))
+    if per_track.shape != (16,) or not bool(torch.isfinite(per_track).all()):
+        raise AssertionError(f"bad eval/laps_per_track {tuple(per_track.shape)}")
+
+    def drive_entry(label, states, prm, render, counter):
+        """ENTRY_STEPS lap steps, each frame rendered through `render`;
+        returns the launch count of `counter` on this path."""
+        g = make_generator(9, dev)
+        RC.reset_launch_counts()
+        for _ in range(ENTRY_STEPS):
+            frames = render(states)
+            a = torch.rand(states.batch_size, 2, generator=g, device=dev)
+            a[:, 0] = a[:, 0] * 0.6 - 0.3
+            states, _ = lap_env.autoreset_step(states, a, prm, g, obs_fn=None)
+        torch.cuda.synchronize()
+        launches = dict(RC.LAUNCHES)
+        log(f"[launches] {label} path ({ENTRY_STEPS} lap steps, frames {tuple(frames.shape)}): {launches}")
+        if launches[counter] <= 0 or not bool(((frames >= 0) & (frames <= 12)).all()):
+            raise AssertionError(f"the {label} path did not render through {counter}: {launches}")
+        return launches[counter]
+
+    entry_launches = {
+        "ground_pass_pose": drive_entry("render_batch_pose", driven, params,
+                                        lambda s: R.render_batch_pose(s, params, cam, style),
+                                        "ground_pass_pose"),
+        "v4": drive_entry("84x84-camera render_batch", driven, params,
+                          lambda s: R.render_batch(s, params, R.CameraConfig(**PIXEL_CAMERA), style),
+                          "ground_pass"),
+        "v3c": drive_entry(f"B={ODD_BATCH} render_batch", _first(driven, ODD_BATCH), params,
+                           lambda s: R.render_batch(s, params, cam, style), "ground_pass"),
+    }
+
+    # 10. Results: one row per TPU kernel.
+    def row(name, source, replaces, launches, key, err):
+        return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}",
+                "replaces": f"{PALLAS}:{replaces}", "launches": launches, "max_abs_err": err,
+                "ms": times[key][0], "plain_ms": times[key][1], "bound_ms": bounds[key][0],
+                "bound_by": bounds[key][1], "library_ms": None}
+
+    # Pallas v4, v3d and v3c compute v5's function under other TPU layouts;
+    # their rows hold ground_pass.cu on each one's contract and path.
     kernels = [
-        {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
-         "launches": launches[name], "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": None}
-        for name in ("ground_pass", "composite")
+        row("ground_pass", "ground_pass.cu", 698, lap_launches["ground_pass"], "ground_pass",
+            errs["ground_pass"]),
+        row("composite", "composite.cu", 1290, lap_launches["composite"], "composite",
+            errs["composite"]),
+        row("ground_pass (v4 contract: 84x84 camera)", "ground_pass.cu", 539, entry_launches["v4"],
+            "v4_pixel_camera", max(errs["v4_pixel_camera"], errs["v4_chase_camera"])),
+        row("ground_pass (v3d contract: banked route batch)", "ground_pass.cu", 1014,
+            route_launches["ground_pass"], "v3d_banked", errs["v3d_banked"]),
+        row(f"ground_pass (v3c contract: B={ODD_BATCH})", "ground_pass.cu", 186, entry_launches["v3c"],
+            "v3c_odd_batch", errs["v3c_odd_batch"]),
+        row("ground_pass_pose", "ground_pass_pose.cu", 955, entry_launches["ground_pass_pose"],
+            "ground_pass_pose", errs["ground_pass_pose"]),
     ]
+    log(f"[launches] lap_bank path: ground_pass {bank_launches['ground_pass']}, "
+        f"composite {bank_launches['composite']}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _first(states, n: int):
+    """The first n envs of a batch."""
+    from carla_ppo_tpu_torch.envs.types import map_tensors
+
+    return map_tensors(lambda t: t[:n], states)
 
 
 if __name__ == "__main__":

@@ -75,7 +75,7 @@ def test_kernel_build_flags():
     from carla_ppo_tpu_torch.utils import cuda_build
 
     compiles, link = cuda_build.compile_commands("nvcc", pathlib.Path("/tmp/x"))
-    assert len(compiles) == len(cuda_build.SOURCES) == 2
+    assert len(compiles) == len(cuda_build.SOURCES) == 3
     for cmd in compiles:
         assert "-fmad=false" in cmd and "arch=compute_90a,code=sm_90a" in cmd
         assert "-c" in cmd and "-Xptxas" in cmd
@@ -93,7 +93,37 @@ def test_kernel_hash_tracks_sources():
     assert len(h) == 16 and h == cuda_build.source_hash()
 
 
-@pytest.mark.parametrize("kernel", ["ground_pass", "composite"])
+def test_kernel_hash_tracks_header(tmp_path):
+    """An edit to the shared header gives a new build directory, so no
+    stale library is loaded."""
+    import shutil
+
+    from carla_ppo_tpu_torch.utils import cuda_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    before = cuda_build.source_hash(csrc)
+    assert before == cuda_build.source_hash()
+    header = csrc / "ground_common.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert cuda_build.source_hash(csrc) != before
+    assert '#include "ground_common.cuh"' in (csrc / "ground_pass.cu").read_text()
+    assert '#include "ground_common.cuh"' in (csrc / "ground_pass_pose.cu").read_text()
+
+
+_NETWORKX = re.compile(r"^\s*(import|from)\s+networkx(\s|\.|$)", re.M)
+
+
+@pytest.mark.parametrize("path", ["carla_ppo_tpu_torch", "chip_smoke.py"])
+def test_port_imports_no_networkx(path):
+    """The card's machine has no networkx: the port plans routes without it."""
+    root = REPO / path
+    files = [root] if root.is_file() else sorted(root.rglob("*.py"))
+    assert files
+    assert [str(f) for f in files if _NETWORKX.search(f.read_text())] == []
+
+
+@pytest.mark.parametrize("kernel", ["ground_pass", "composite", "ground_pass_pose"])
 def test_cuda_wrappers_refuse_cpu_tensors(kernel):
     """A kernel wrapper launches on CUDA tensors or raises; it never falls
     back to the plain version."""
@@ -106,9 +136,14 @@ def test_cuda_wrappers_refuse_cpu_tensors(kernel):
                 torch.zeros(8, 128, 8), torch.zeros(8, 8, 128), torch.zeros(2, 6400),
                 torch.zeros(5, 3, dtype=torch.int32), 6400, 12800, (0.0,) * 8,
             )
-        else:
+        elif kernel == "composite":
             RC.composite_cuda(torch.zeros(8, 72, 8), torch.zeros(80),
                               torch.zeros(8, 12800, dtype=torch.int32), 160)
+        else:
+            RC.ground_pass_pose_cuda(
+                torch.zeros(8, dtype=torch.int32), torch.zeros(1200, 8), torch.zeros(8, 8), 128,
+                torch.zeros(2, 6400), torch.zeros(5, 3, dtype=torch.int32), 6400, 12800, (0.0,) * 8,
+            )
     assert RC.LAUNCHES == before
 
 

@@ -1,11 +1,14 @@
-"""The camera's two kernels and their plain PyTorch versions, without JAX.
+"""The camera's kernels and their plain PyTorch versions, without JAX.
 
 On the CPU: each plain version against an explicit per-pixel Python loop on
 small crafted inputs (ties, sky prefix, stripe boundaries, uncovered and
-overlapping billboards). On a CUDA card (`gpu` marker, skipped without
-one): each CUDA kernel against its plain version, bit for bit, on the
-crafted inputs and on a 256-env batch driven around the track with props,
-and the render dispatch counting one launch of each kernel per frame batch.
+overlapping billboards, the pose-fed window fetch and rotation). On a CUDA
+card (`gpu` marker, skipped without one): each CUDA kernel against its
+plain version, bit for bit, on the crafted inputs and on a 256-env batch
+driven around the track with props; the pose-fed kernel also against the
+ground-pass kernel; the ground-pass kernel on unaligned cameras, a banked
+route batch and an odd batch size; and the render dispatch counting one
+launch of each kernel per frame batch.
 
 This module imports neither JAX nor the JAX package, so on a machine
 without JAX the card tests run with
@@ -97,6 +100,62 @@ def _loop_ground(win, payload, slab, stripes, sky_px, hw):
                 cls = 9
             out[b, sky_px + p] = cls
     return out
+
+
+def _crafted_pose(seed=2):
+    """A wrap-baked table of M=40 rows, B=3 envs with K0=16 windows starting
+    at rows 0, 7 and 24, poses with arbitrary headings; the crafted stripe
+    plan and slab of _crafted_ground."""
+    rng = np.random.default_rng(seed)
+    M, K0 = 40, 16
+    table = np.zeros((M, 8), np.float32)
+    table[:, 0] = np.cumsum(rng.uniform(0.5, 1.5, size=M))
+    table[:, 1] = rng.uniform(-3, 3, size=M)
+    ang = rng.uniform(-0.4, 0.4, size=M)
+    table[:, 2], table[:, 3] = np.cos(ang), np.sin(ang)
+    table[:, 4] = rng.uniform(1.5, 3.5, size=M)
+    table[:, 5] = rng.uniform(1.5, 3.5, size=M)
+    starts = np.array([0, 7, 24], np.int32)
+    yaw = rng.uniform(-0.5, 0.5, size=3).astype(np.float32)
+    pose = np.zeros((3, 8), np.float32)
+    pose[:, 0], pose[:, 1] = np.cos(yaw), np.sin(yaw)
+    pose[:, 2] = table[starts + 4, 0] + rng.normal(0, 1, size=3)
+    pose[:, 3] = table[starts + 4, 1] + rng.normal(0, 1, size=3)
+    pose[:, 4] = np.array([-16, 5, 300], np.float32)
+    _, _, slab, stripes, sky_px, hw = _crafted_ground()
+    return starts, table, pose, K0, slab, stripes, sky_px, hw
+
+
+def _loop_pose_windows(starts, table, pose, K0):
+    """The window fetch and camera rotation, one float32 operation at a time."""
+    B = starts.shape[0]
+    win = np.zeros((B, K0, 8), np.float32)
+    payload = np.zeros((B, 8, K0), np.float32)
+    for b in range(B):
+        cy, sy, cx, cyy, idx0 = pose[b, :5]
+        for k in range(K0):
+            x, y, fx, fy, lw, rw = table[starts[b] + k, :6]
+            wlx, wly = x - cx, y - cyy
+            wpx = cy * wlx + sy * wly
+            wpy = -sy * wlx + cy * wly
+            fpx = cy * fx + sy * fy
+            fpy = -sy * fx + cy * fy
+            win[b, k, :2] = wpx, wpy
+            payload[b, :7, k] = (fpx, fpy, fpy * wpx - fpx * wpy, -(wpx * fpx + wpy * fpy),
+                                 idx0 + np.float32(k), lw, rw)
+    return win, payload
+
+
+def test_plain_ground_pass_pose_matches_loop():
+    starts, table, pose, K0, slab, stripes, sky_px, hw = _crafted_pose()
+    got = R.ground_pass_pose_plain(
+        torch.as_tensor(starts), torch.as_tensor(table), torch.as_tensor(pose), K0,
+        torch.as_tensor(slab), torch.as_tensor(stripes), sky_px, hw, CONSTS,
+    )
+    win, payload = _loop_pose_windows(starts, table, pose, K0)
+    want = _loop_ground(win, payload, slab, stripes, sky_px, hw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert len(np.unique(want[:, sky_px:])) >= 3
 
 
 def test_plain_ground_pass_matches_loop():
@@ -236,6 +295,94 @@ def test_render_batch_launches_both_kernels(cuda_device):
     RC.reset_launch_counts()
     frames = R.render_batch(s, p)
     torch.cuda.synchronize()
-    assert RC.LAUNCHES == {"ground_pass": 1, "composite": 1}
+    assert RC.LAUNCHES == {"ground_pass": 1, "ground_pass_pose": 0, "composite": 1}
     assert frames.shape == (64, 80, 160) and frames.device.type == "cuda"
     assert int(frames.min()) >= 0 and int(frames.max()) <= 12
+
+
+@pytest.mark.gpu
+def test_crafted_pose_case_on_card(cuda_device):
+    starts, table, pose, K0, slab, stripes, sky_px, hw = _crafted_pose()
+    st, t, ps, sl, sp = _cuda(starts, table, pose, slab, stripes, device=cuda_device)
+    got = RC.ground_pass_pose_cuda(st, t, ps, K0, sl, sp, sky_px, hw, CONSTS)
+    torch.cuda.synchronize()
+    win, payload = _loop_pose_windows(starts, table, pose, K0)
+    np.testing.assert_array_equal(got.cpu().numpy(), _loop_ground(win, payload, slab, stripes, sky_px, hw))
+
+
+@pytest.mark.gpu
+def test_pose_kernel_matches_plain_and_ground_pass_on_card(cuda_device):
+    """The pose-fed kernel equals its plain version and the ground-pass
+    kernel on prep_windows' windows, bit for bit."""
+    s, p = _card_batch(cuda_device)
+    cam, style = R.CameraConfig(), R.RoadStyle()
+    starts, table, pose = R.prep_pose(s, p, cam)
+    slab, stripes, sky_px, _ = R._device_layout(cam, str(table.device))
+    plain = R.ground_pass_pose_plain(starts, table, pose, cam.window, slab, stripes, sky_px, 12800, CONSTS)
+    before = dict(RC.LAUNCHES)
+    got = R.render_batch_pose(s, p, cam, style)
+    ground = R.ground_pass(*R.prep_windows(s, p, cam), cam, style)
+    torch.cuda.synchronize()
+    assert RC.LAUNCHES["ground_pass_pose"] == before["ground_pass_pose"] + 1
+    assert int((got != plain).sum()) == 0
+    assert int((got != ground).sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("camera", ["84x84", "spectator_180x320"])
+def test_ground_kernel_unaligned_cameras_on_card(cuda_device, camera):
+    kw = dict(height=84, width=84) if camera == "84x84" else dict(
+        height=180, width=320, mount_forward=-5.5, mount_height=2.8, pitch_deg=-15.0)
+    cam = R.CameraConfig(**kw)
+    s, p = _card_batch(cuda_device)
+    win_cols, payload = R.prep_windows(s, p, cam)
+    slab, stripes, sky_px, _ = R._device_layout(cam, str(win_cols.device))
+    hw = cam.height * cam.width
+    plain = R.ground_pass_plain(win_cols, payload, slab, stripes, sky_px, hw, CONSTS)
+    got = R.ground_pass(win_cols, payload, cam, R.RoadStyle())
+    torch.cuda.synchronize()
+    assert got.shape == (256, hw)
+    assert int((got != plain).sum()) == 0
+
+
+@pytest.mark.gpu
+def test_ground_kernel_banked_route_batch_on_card(cuda_device):
+    """A route bank with props: render_batch_banked launches both kernels,
+    each equal to its plain version, and draws billboards."""
+    from carla_ppo_tpu_torch.envs import route_env, route_planner
+    from carla_ppo_tpu_torch.utils.device import make_generator
+
+    bank = route_planner.make_route_bank(route_planner.make_town(seed=0), n_routes=16,
+                                         capacity=1024, props=True, device=cuda_device)
+    p = route_env.route_env_params(bank)
+    g = make_generator(0, cuda_device)
+    s = route_env.reset(p, g, batch=256)
+    for _ in range(24):
+        a = torch.rand(256, 2, generator=g, device=cuda_device)
+        a[:, 0] = 0.4 * a[:, 0] - 0.2
+        s, _ = route_env.autoreset_step(s, a, p, g, obs_fn=None)
+    cam = R.CameraConfig()
+    win_cols, payload = R.prep_windows(s, p, cam)
+    slab, stripes, sky_px, depth = R._device_layout(cam, str(win_cols.device))
+    ground_plain = R.ground_pass_plain(win_cols, payload, slab, stripes, sky_px, 12800, CONSTS)
+    rows = R.prep_candidates(s, p, cam)
+    rich_plain = R.composite_plain(rows, depth, ground_plain, cam.width)
+    RC.reset_launch_counts()
+    rich = R.render_batch_banked(s, p, cam)
+    torch.cuda.synchronize()
+    assert RC.LAUNCHES == {"ground_pass": 1, "ground_pass_pose": 0, "composite": 1}
+    assert torch.equal(rich.view(256, -1), rich_plain)
+    assert bool((rich_plain != ground_plain).any())
+
+
+@pytest.mark.gpu
+def test_ground_kernel_odd_batch_on_card(cuda_device):
+    s, p = _card_batch(cuda_device, n=1000, steps=4)
+    cam = R.CameraConfig()
+    win_cols, payload = R.prep_windows(s, p, cam)
+    slab, stripes, sky_px, _ = R._device_layout(cam, str(win_cols.device))
+    plain = R.ground_pass_plain(win_cols, payload, slab, stripes, sky_px, 12800, CONSTS)
+    got = R.ground_pass(win_cols, payload, cam, R.RoadStyle())
+    torch.cuda.synchronize()
+    assert got.shape == (1000, 12800)
+    assert int((got != plain).sum()) == 0
