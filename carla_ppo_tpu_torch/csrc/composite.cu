@@ -14,64 +14,159 @@
 // The key is a positive f32 depth with the class id in its low 4 bits, so
 // one int32 min picks the nearest candidate and its class together.
 //
-// What bounds it on an H100: the INT32 pipe. The 72-candidate loop is one
-// int32 max and one min per candidate-pixel, 1.9 G ops per 1024 envs on the
-// 64 INT32 lanes of each SM (~16.7 T ops/s, ~0.11 ms), against 107 MB of
-// frames and tables read and written (~0.03 ms at 3.35 TB/s).
+// What bounds it on an H100: bytes. The pass reads the ground frames and
+// writes the composited frames, 2 x 52.4 MB per 1024 80x160 envs, plus
+// 2.4 MB of candidate rows: ~0.032 ms at 3.35 TB/s. The work the inputs
+// need is N x (W + H) predicate evaluations per env (17 k at N = 72) and
+// one int32 min per (candidate, covered pixel) pair (~3.2 k covered pixels
+// per env), far below the bytes.
 //
-// Design: one block per env; the env's candidates (at most 128 x 6 words)
-// are staged once in shared memory and read as broadcasts; each thread
-// walks pixels with a block-wide stride, so consecutive lanes read and
-// write consecutive ground words (coalesced). int32 min/max is exact and
-// associative, so the result is bit-identical to any reduction order.
+// Design: a billboard is an axis-aligned rectangle, so its coverage is
+// separable: U depends only on the column and V only on the row. One block
+// per env builds two bitmask tables in shared memory, 4 words of 32
+// candidates each (N <= 128): colmask[w][c] (bit n: valid_n and the column
+// test) and rowmask[r][w] (bit n: the row test), with warp ballots whose
+// lanes are candidates and with the float expressions above, so every
+// predicate rounds as the plain version's does. best = min over the set
+// bits of rowmask[r] & colmask[c] of key_n (INT_MAX where none is set);
+// max(key, INT_MIN) = key and max(key, INT_MAX) = INT_MAX, so this is
+// min_n max(U, V) bit for bit, and int32 min is exact in any order. The
+// pixel pass then streams the frame: each of the block's 512 threads takes
+// 4 pixels of one row as one 16-byte load and one 16-byte store
+// (consecutive threads on consecutive addresses), and a row whose mask is
+// empty is a straight copy. The column masks are stored word-major, so a thread's 4 columns
+// are one conflict-free 16-byte shared load per word. Widths that are not
+// a multiple of 4, or unaligned frames, take a scalar pixel loop.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kMaxCandidates = 128;
-constexpr int kThreads = 256;
+constexpr int kWords = kMaxCandidates / 32;
+constexpr int kThreads = 512;
 
+// min over the set bits n of `m` (word w) of key[32 w + n].
+__device__ __forceinline__ int min_key(int best, uint32_t m, const int* key) {
+  while (m) {
+    best = min(best, key[__ffs(m) - 1]);
+    m &= m - 1;
+  }
+  return best;
+}
+
+// The composited class of one pixel whose candidates are rm & cm.
+__device__ __forceinline__ int shade(int g, const uint4& rm, uint32_t c0, uint32_t c1,
+                                     uint32_t c2, uint32_t c3, float depth,
+                                     const int* key) {
+  int best = INT_MAX;
+  best = min_key(best, rm.x & c0, key);
+  best = min_key(best, rm.y & c1, key + 32);
+  best = min_key(best, rm.z & c2, key + 64);
+  best = min_key(best, rm.w & c3, key + 96);
+  const float best_d = __int_as_float(best & ~15);
+  return (best_d < depth) ? (best & 15) : g;
+}
+
+template <bool kVector>
 __global__ void __launch_bounds__(kThreads)
 composite_kernel(const float* __restrict__ rows, const float* __restrict__ depth,
                  const int* __restrict__ ground, int N, int H, int W,
                  int* __restrict__ out) {
-  __shared__ float s_uc[kMaxCandidates];
-  __shared__ float s_hw[kMaxCandidates];
-  __shared__ float s_vt[kMaxCandidates];
-  __shared__ float s_vb[kMaxCandidates];
+  // Dynamic shared memory: rowmask [H] uint4, then colmask [kWords][W] words.
+  extern __shared__ uint4 s_dyn[];
   __shared__ int s_key[kMaxCandidates];
-  __shared__ int s_ok[kMaxCandidates];
+  uint4* s_row = s_dyn;
+  uint32_t* s_col = reinterpret_cast<uint32_t*>(s_dyn + H);
 
   const int b = blockIdx.x;
   const float* cand = rows + static_cast<size_t>(b) * N * 8;
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    s_uc[n] = cand[n * 8 + 0];
-    s_hw[n] = cand[n * 8 + 1];
     s_key[n] = __float_as_int(cand[n * 8 + 2]);
-    s_ok[n] = cand[n * 8 + 3] > 0.0f;
-    s_vt[n] = cand[n * 8 + 4];
-    s_vb[n] = cand[n * 8 + 5];
+  }
+
+  // Lane l holds candidate 32 w + l of every word w in registers.
+  const int lane = threadIdx.x & 31;
+  const int n_words = (N + 31) / 32;
+  float uc[kWords], hw[kWords], vt[kWords], vb[kWords];
+  bool ok[kWords], in[kWords];
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    const int n = 32 * w + lane;
+    in[w] = n < N;
+    const float* c = cand + (in[w] ? n : 0) * 8;
+    uc[w] = c[0];
+    hw[w] = c[1];
+    ok[w] = in[w] && c[3] > 0.0f;
+    vt[w] = c[4];
+    vb[w] = c[5];
+  }
+  const int n_warps = blockDim.x >> 5;
+  for (int p = threadIdx.x >> 5; p < W + H; p += n_warps) {
+    uint32_t m[kWords];
+    if (p < W) {
+      const float u = static_cast<float>(p) + 0.5f;
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) {
+        m[w] = w < n_words ? __ballot_sync(0xffffffffu, ok[w] && fabsf(u - uc[w]) <= hw[w]) : 0u;
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int w = 0; w < kWords; ++w) s_col[w * W + p] = m[w];
+      }
+    } else {
+      const float v = static_cast<float>(p - W) + 0.5f;
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) {
+        m[w] = w < n_words ? __ballot_sync(0xffffffffu, in[w] && v >= vt[w] && v <= vb[w]) : 0u;
+      }
+      if (lane == 0) s_row[p - W] = make_uint4(m[0], m[1], m[2], m[3]);
+    }
   }
   __syncthreads();
 
   const int hw_px = H * W;
   const int* src = ground + static_cast<size_t>(b) * hw_px;
   int* dst = out + static_cast<size_t>(b) * hw_px;
-  for (int q = threadIdx.x; q < hw_px; q += blockDim.x) {
-    const int r = q / W;
-    const int c = q - r * W;
-    const float u = static_cast<float>(c) + 0.5f;
-    const float v = static_cast<float>(r) + 0.5f;
-    int best = INT_MAX;
-    for (int n = 0; n < N; ++n) {
-      const int U = (s_ok[n] && fabsf(u - s_uc[n]) <= s_hw[n]) ? s_key[n] : INT_MAX;
-      const int V = (v >= s_vt[n] && v <= s_vb[n]) ? INT_MIN : INT_MAX;
-      best = min(best, max(U, V));
+  if (kVector) {
+    // W % 4 == 0: a thread's 4 pixels share one row.
+    const int4* src4 = reinterpret_cast<const int4*>(src);
+    int4* dst4 = reinterpret_cast<int4*>(dst);
+    for (int g = threadIdx.x; g < hw_px / 4; g += blockDim.x) {
+      const int q = 4 * g;
+      const int r = q / W;
+      const int c = q - r * W;
+      int4 px = src4[g];
+      const uint4 rm = s_row[r];
+      if (rm.x | rm.y | rm.z | rm.w) {
+        uint4 cm[kWords];
+#pragma unroll
+        for (int w = 0; w < kWords; ++w) {
+          cm[w] = w < n_words ? *reinterpret_cast<const uint4*>(s_col + w * W + c)
+                              : make_uint4(0u, 0u, 0u, 0u);
+        }
+        const float d = depth[r];
+        px.x = shade(px.x, rm, cm[0].x, cm[1].x, cm[2].x, cm[3].x, d, s_key);
+        px.y = shade(px.y, rm, cm[0].y, cm[1].y, cm[2].y, cm[3].y, d, s_key);
+        px.z = shade(px.z, rm, cm[0].z, cm[1].z, cm[2].z, cm[3].z, d, s_key);
+        px.w = shade(px.w, rm, cm[0].w, cm[1].w, cm[2].w, cm[3].w, d, s_key);
+      }
+      dst4[g] = px;
     }
-    const float best_d = __int_as_float(best & ~15);
-    dst[q] = (best_d < depth[r]) ? (best & 15) : src[q];
+  } else {
+    for (int q = threadIdx.x; q < hw_px; q += blockDim.x) {
+      const int r = q / W;
+      const int c = q - r * W;
+      const uint4 rm = s_row[r];
+      int px = src[q];
+      if (rm.x | rm.y | rm.z | rm.w) {
+        px = shade(px, rm, s_col[c], s_col[W + c], s_col[2 * W + c], s_col[3 * W + c],
+                   depth[r], s_key);
+      }
+      dst[q] = px;
+    }
   }
 }
 
@@ -80,9 +175,22 @@ composite_kernel(const float* __restrict__ rows, const float* __restrict__ depth
 extern "C" int launch_composite(const void* rows, const void* depth,
                                 const void* ground, int batch, int N, int H,
                                 int W, void* out, void* stream) {
-  if (N > kMaxCandidates || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (N > kMaxCandidates || N < 1 || H < 1 || W < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (batch == 0) return 0;
-  composite_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = static_cast<size_t>(H) * sizeof(uint4) +
+                      static_cast<size_t>(kWords) * W * sizeof(uint32_t);
+  const bool vector = W % 4 == 0 &&
+                      (reinterpret_cast<uintptr_t>(ground) % 16) == 0 &&
+                      (reinterpret_cast<uintptr_t>(out) % 16) == 0;
+  auto kernel = vector ? composite_kernel<true> : composite_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rows), static_cast<const float*>(depth),
       static_cast<const int*>(ground), N, H, W, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());

@@ -57,8 +57,7 @@ ground_pass_pose_kernel(const int* __restrict__ starts,
     const float wpy = -sy * wlx + cy * wly;
     const float fpx = cy * t[2] + sy * t[3];
     const float fpy = -sy * t[2] + cy * t[3];
-    w.wx[i] = wpx;
-    w.wy[i] = wpy;
+    w.xy[i] = make_float2(wpx, wpy);
     w.pay[0][i] = fpx;
     w.pay[1][i] = fpy;
     w.pay[2][i] = fpy * wpx - fpx * wpy;
@@ -69,7 +68,7 @@ ground_pass_pose_kernel(const int* __restrict__ starts,
   }
   ground::stage_stripes(w, stripes, n_stripes);
   __syncthreads();
-  ground::shade_pixels(w, n_stripes, slab, sky_px, ground_px, hw, st,
+  ground::shade_pixels(w, n_stripes, slab, sky_px, ground_px, st,
                        out + static_cast<size_t>(b) * hw);
 }
 
@@ -81,13 +80,14 @@ extern "C" int launch_ground_pass_pose(
     int ground_px, int hw, int batch, float edge_half, float center_half,
     float dash_period, float dash_len, float shoulder, float sidewalk,
     float sidewalk_outer, float corridor_margin, void* out, void* stream) {
-  if (K0 > kMaxWindow || n_stripes > kMaxStripes || n_stripes < 1 ||
+  if (K0 < 1 || K0 > kMaxWindow || n_stripes > kMaxStripes || n_stripes < 1 ||
       table_rows < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0) return 0;
-  ground::RoadStyle st{edge_half, center_half, dash_period, dash_len,
-                       shoulder,  sidewalk,    sidewalk_outer, corridor_margin};
+  const ground::RoadStyle st{edge_half, center_half,    dash_period,
+                             dash_len,  shoulder,       sidewalk,
+                             sidewalk_outer, corridor_margin, 1.0f / dash_period};
   ground_pass_pose_kernel<<<batch, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(starts), static_cast<const float*>(table),

@@ -5,7 +5,9 @@
 - `ground_pass_pose_cuda`  <- rasterizer_pallas.render_batch_pallas_v6
 - `composite_cuda`         <- rasterizer_pallas.composite_billboards_pallas
 
-Each wrapper checks device, dtype, shape and contiguity and raises on
+Each wrapper checks the kernels' size limits (at most MAX_CANDIDATES
+billboard candidates, a window of at most MAX_WINDOW waypoints, at most
+MAX_STRIPES stripes), device, dtype, shape and contiguity and raises on
 anything else, allocates its output with torch.empty, launches on the
 current stream, raises on a non-zero launch status, and adds one to its
 entry in LAUNCHES per launch. Their plain PyTorch versions live in
@@ -20,6 +22,12 @@ import torch
 from torch import Tensor
 
 from carla_ppo_tpu_torch.utils.cuda_build import load_library
+
+# The kernels' shared-memory tables: kMaxCandidates in csrc/composite.cu,
+# kMaxWindow and kMaxStripes in csrc/ground_common.cuh.
+MAX_CANDIDATES = 128
+MAX_WINDOW = 256
+MAX_STRIPES = 64
 
 # Launch counts per kernel; callers zero them with reset_launch_counts().
 LAUNCHES = {"ground_pass": 0, "ground_pass_pose": 0, "composite": 0}
@@ -41,6 +49,11 @@ def _check(name: str, t: Tensor, dtype: torch.dtype, shape: tuple) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _check_limit(kernel: str, what: str, n: int, limit: int) -> None:
+    if not 1 <= n <= limit:
+        raise ValueError(f"{kernel}: {what} must be between 1 and {limit}, got {n}")
+
+
 def _raise_on(status: int, kernel: str) -> None:
     if status != 0:
         raise RuntimeError(f"{kernel} launch failed with cudaError {status}")
@@ -60,6 +73,8 @@ def ground_pass_cuda(
     B, K0, _ = win_cols.shape
     n_stripes = stripes.shape[0]
     ground_px = slab.shape[1]
+    _check_limit("ground_pass", "the window length K0", K0, MAX_WINDOW)
+    _check_limit("ground_pass", "the number of stripes", n_stripes, MAX_STRIPES)
     _check("win_cols", win_cols, torch.float32, (B, K0, 8))
     _check("payload", payload, torch.float32, (B, 8, K0))
     _check("slab", slab, torch.float32, (2, ground_px))
@@ -97,6 +112,8 @@ def ground_pass_pose_cuda(
     M = table.shape[0]
     n_stripes = stripes.shape[0]
     ground_px = slab.shape[1]
+    _check_limit("ground_pass_pose", "the window length", window, MAX_WINDOW)
+    _check_limit("ground_pass_pose", "the number of stripes", n_stripes, MAX_STRIPES)
     _check("starts", starts, torch.int32, (B,))
     _check("table", table, torch.float32, (M, 8))
     _check("pose", pose, torch.float32, (B, 8))
@@ -123,6 +140,7 @@ def composite_cuda(rows: Tensor, depth_rows: Tensor, ground: Tensor, W: int) -> 
     rasterizer.composite_plain for the function)."""
     B, N, _ = rows.shape
     H = depth_rows.shape[0]
+    _check_limit("composite", "the number of candidates N", N, MAX_CANDIDATES)
     _check("rows", rows, torch.float32, (B, N, 8))
     _check("depth_rows", depth_rows, torch.float32, (H,))
     _check("ground", ground, torch.int32, (B, H * W))

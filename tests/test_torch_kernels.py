@@ -2,12 +2,18 @@
 
 On the CPU: each plain version against an explicit per-pixel Python loop on
 small crafted inputs (ties, sky prefix, stripe boundaries, uncovered and
-overlapping billboards, the pose-fed window fetch and rotation). On a CUDA
+overlapping billboards, the pose-fed window fetch and rotation), and the
+kernels' edge cases: 128 billboard candidates (four 32-bit mask words),
+coverage edges exactly on pixel centres, equal keys, an env with no valid
+candidate, a frame width that is not a multiple of 4, stripes whose pixel counts are not multiples of 32, duplicated
+waypoints and windows shorter than the scan's unroll; the wrappers refuse
+sizes beyond the kernels' shared-memory tables. On a CUDA
 card (`gpu` marker, skipped without one): each CUDA kernel against its
 plain version, bit for bit, on the crafted inputs and on a 256-env batch
 driven around the track with props; the pose-fed kernel also against the
 ground-pass kernel; the ground-pass kernel on unaligned cameras, a banked
-route batch and an odd batch size; and the render dispatch counting one
+route batch and an odd batch size; the composite's scalar pixel loop on
+an odd width and on frames off 16-byte alignment; and the render dispatch counting one
 launch of each kernel per frame batch.
 
 This module imports neither JAX nor the JAX package, so on a machine
@@ -219,6 +225,196 @@ def test_plain_composite_matches_loop():
     assert (want != ground).any()
 
 
+def _crafted_ground_plan(seed, K0, plan, sky_px, row_width=None):
+    """B=3 envs over a crafted stripe plan [(K, P), ...]: exact d2 ties
+    (waypoint 2 repeated at 5 and 6, 19 at 20 where K0 allows; env 2's
+    window is one point K0 times, so every pixel's d2 ties on every k and
+    k = 0 must win) and pixels exactly on tied points. With row_width, the
+    rays' forward component a is constant over each row of that many
+    pixels, as a rigid camera's is (the kernel's row-shared scan)."""
+    rng = np.random.default_rng(seed)
+    B = 3
+    win = np.zeros((B, K0, 8), np.float32)
+    win[:, :, 0] = rng.uniform(0, 30, size=(B, K0))
+    win[:, :, 1] = rng.uniform(-5, 5, size=(B, K0))
+    for src, dups in ((2, (5, 6)), (19, (20,))):
+        for d in dups:
+            if d < K0:
+                win[:2, d, :2] = win[:2, src, :2]
+    win[2, :, :2] = win[2, 0, :2]
+    payload = np.zeros((B, 8, K0), np.float32)
+    payload[:, 0] = 1.0
+    payload[:, 1] = rng.normal(0, 0.05, size=(B, K0))
+    payload[:, 2] = rng.normal(0, 2, size=(B, K0))
+    payload[:, 3] = rng.normal(0, 2, size=(B, K0))
+    payload[:, 4] = np.arange(K0)[None, :] + rng.integers(-16, 900, size=(B, 1))
+    payload[:, 5] = rng.uniform(1.5, 3.5, size=(B, K0))
+    payload[:, 6] = rng.uniform(1.5, 3.5, size=(B, K0))
+    offsets = np.cumsum([0] + [P for _, P in plan])
+    stripes = np.array([[K, off, P] for (K, P), off in zip(plan, offsets)], np.int32)
+    ground_px = int(offsets[-1])
+    slab = np.zeros((2, ground_px), np.float32)
+    slab[1] = rng.uniform(-8, 8, size=ground_px)
+    on_first, on_last = win[0, min(2, K0 - 1), :2], win[1, min(19, K0 - 1), :2]
+    if row_width is None:
+        slab[0] = rng.uniform(0, 30, size=ground_px)
+        slab[:, 3], slab[:, ground_px - 1] = on_first, on_last
+    else:
+        slab[0] = np.repeat(rng.uniform(0, 30, size=ground_px // row_width), row_width)
+        slab[0, :row_width], slab[1, 3] = on_first
+        slab[0, -row_width:], slab[1, -1] = on_last
+    return win, payload, slab, stripes, sky_px, sky_px + ground_px
+
+
+# Stripe pixel counts that are not multiples of 32 (nor of 4), K from the
+# whole window down to below the k loop's unroll, odd sky prefixes, and
+# rows of 12 pixels with a shared forward ray component.
+GROUND_EDGE_CASES = {
+    "ragged_stripes": lambda: _crafted_ground_plan(5, 24, [(24, 37), (9, 161), (3, 70), (24, 5)], 7),
+    "tiny_window": lambda: _crafted_ground_plan(6, 2, [(2, 45), (1, 33)], 3),
+    "row_shared_rays": lambda: _crafted_ground_plan(7, 32, [(32, 36), (17, 180), (5, 84)], 12,
+                                                    row_width=12),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GROUND_EDGE_CASES))
+def test_plain_ground_pass_edge_cases(case):
+    win, payload, slab, stripes, sky_px, hw = GROUND_EDGE_CASES[case]()
+    got = R.ground_pass_plain(torch.as_tensor(win), torch.as_tensor(payload), torch.as_tensor(slab),
+                              torch.as_tensor(stripes), sky_px, hw, CONSTS, env_chunk=2)
+    want = _loop_ground(win, payload, slab, stripes, sky_px, hw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[:, :sky_px] == 0).all() and len(np.unique(want[:, sky_px:])) >= 2
+
+
+EDGE_CAMERA = dict(height=12, width=20)
+
+
+def _edge_depth_rows(W: int = EDGE_CAMERA["width"]) -> np.ndarray:
+    """Ground depth per row of the 12-row edge-case camera at width W (inf on
+    sky rows)."""
+    return R._row_geometry(R.CameraConfig(**dict(EDGE_CAMERA, width=W)))[2].astype(np.float32)
+
+
+def _keys(depth, cls) -> np.ndarray:
+    """Candidate keys as float32 bits: depth with the class in its low 4 bits."""
+    depth = np.asarray(depth, np.float32)
+    return ((depth.view(np.int32) & ~15) | np.asarray(cls, np.int32)).astype(np.int32).view(np.float32)
+
+
+def _random_candidates(rng, B, N, H, W):
+    rows = np.zeros((B, N, 8), np.float32)
+    rows[..., 0] = rng.uniform(-2, W + 2, size=(B, N))
+    rows[..., 1] = rng.uniform(0.5, 4.0, size=(B, N))
+    rows[..., 2] = _keys(rng.uniform(1.0, 60.0, size=(B, N)), rng.integers(1, 13, size=(B, N)))
+    rows[..., 3] = (rng.random((B, N)) > 0.1).astype(np.float32)
+    rows[..., 4] = rng.uniform(-2, H, size=(B, N))
+    rows[..., 5] = rows[..., 4] + rng.uniform(0.5, 8.0, size=(B, N))
+    return rows
+
+
+def _crafted_composite_n128(seed=3):
+    """B=2, N=128 candidates, all four 32-bit mask words in use; the nearest
+    candidate, n=127 (the last bit of the fourth word), covers columns
+    7..12 of rows 2..8."""
+    rng = np.random.default_rng(seed)
+    H, W = EDGE_CAMERA["height"], EDGE_CAMERA["width"]
+    rows = _random_candidates(rng, 2, 128, H, W)
+    rows[:, 127, :6] = (10.0, 3.0, _keys(0.75, 5), 1.0, 2.0, 9.0)
+    ground = rng.integers(0, 13, size=(2, H * W)).astype(np.int32)
+    return rows, _edge_depth_rows(), ground, W
+
+
+def _crafted_composite_boundaries(seed=4):
+    """B=3, N=72 (three mask words, the last one partial). Column edges
+    |c + .5 - u_c| = hw_pix and row edges v_top, v_bot = r + .5 fall exactly
+    on pixel centres (every value is exact in float32, so `<=` decides);
+    equal keys on different rectangles and equal depths with different
+    classes; an empty row span; a rectangle over the whole frame, behind the
+    near rows' ground; env 2 has no valid candidate."""
+    rng = np.random.default_rng(seed)
+    H, W = EDGE_CAMERA["height"], EDGE_CAMERA["width"]
+    B, N = 3, 72
+    rows = _random_candidates(rng, B, N, H, W)
+    n_exact = 48
+    rows[:, :n_exact, 0] = 0.5 * rng.integers(-2, 2 * W + 2, size=(B, n_exact))
+    rows[:, :n_exact, 1] = 0.5 * rng.integers(1, 7, size=(B, n_exact))
+    rows[:, :n_exact, 4] = rng.integers(-1, H, size=(B, n_exact)) + 0.5
+    rows[:, :n_exact, 5] = rows[:, :n_exact, 4] + rng.integers(0, 6, size=(B, n_exact))
+    # u_c +- hw_pix = m + .25 +- (n + .25): one edge on a pixel centre, one between.
+    rows[:, 48:56, 0] = rng.integers(2, W - 2, size=(B, 8)) + 0.25
+    rows[:, 48:56, 1] = rng.integers(0, 3, size=(B, 8)) + 0.25
+    rows[:, 60, :6] = (9.5, 2.0, _keys(3.0, 7), 1.0, 3.5, 8.5)
+    rows[:, 61, :6] = (12.5, 2.0, _keys(3.0, 7), 1.0, 5.5, 10.5)  # the same key
+    rows[:, 62, :6] = (11.0, 1.5, _keys(3.0, 2), 1.0, 4.5, 9.5)  # the same depth, class 2
+    rows[:, 63, :6] = (4.5, 3.0, _keys(0.8, 9), 1.0, 6.5, 5.5)  # v_top > v_bot: no row
+    rows[:, 64, :6] = (10.0, 40.0, _keys(25.0, 11), 1.0, -5.0, 40.0)  # whole frame, far
+    rows[2, :, 3] = 0.0
+    ground = rng.integers(0, 13, size=(B, H * W)).astype(np.int32)
+    return rows, _edge_depth_rows(), ground, W
+
+
+def _crafted_composite_odd_width(seed=5):
+    """B=2, N=40 on a 12x18 frame: a width that is not a multiple of 4, so
+    the kernel takes its scalar pixel loop; the nearest candidate, n=39,
+    covers columns 7..12 of rows 2..8."""
+    rng = np.random.default_rng(seed)
+    H, W = EDGE_CAMERA["height"], 18
+    rows = _random_candidates(rng, 2, 40, H, W)
+    rows[:, 39, :6] = (10.0, 3.0, _keys(0.75, 5), 1.0, 2.0, 9.0)
+    ground = rng.integers(0, 13, size=(2, H * W)).astype(np.int32)
+    return rows, _edge_depth_rows(W), ground, W
+
+
+COMPOSITE_EDGE_CASES = {"n128": _crafted_composite_n128, "boundaries": _crafted_composite_boundaries,
+                        "odd_width": _crafted_composite_odd_width}
+
+
+def _check_composite_edge_case(case, got, rows, ground, W):
+    if case in ("n128", "odd_width"):
+        assert (got[:, 2 * W + 7:2 * W + 13] == 5).all()  # the last candidate wins there
+    else:
+        np.testing.assert_array_equal(got[2], ground[2])  # no valid candidate
+    assert (got[:2] != ground[:2]).any()
+
+
+@pytest.mark.parametrize("case", sorted(COMPOSITE_EDGE_CASES))
+def test_plain_composite_edge_cases(case):
+    rows, depth, ground, W = COMPOSITE_EDGE_CASES[case]()
+    got = R.composite_plain(torch.as_tensor(rows), torch.as_tensor(depth), torch.as_tensor(ground), W,
+                            env_chunk=2).numpy()
+    np.testing.assert_array_equal(got, _loop_composite(rows, depth, ground, W))
+    _check_composite_edge_case(case, got, rows, ground, W)
+
+
+@pytest.mark.parametrize("kernel, what", [("composite", "candidates"), ("ground_pass", "window"),
+                                          ("ground_pass", "stripes"), ("ground_pass_pose", "window"),
+                                          ("ground_pass_pose", "stripes")])
+def test_cuda_wrappers_refuse_oversize(kernel, what):
+    """Sizes beyond the kernels' shared-memory tables raise a ValueError that
+    names the limit, before anything is launched."""
+    before = dict(RC.LAUNCHES)
+    K0 = RC.MAX_WINDOW + 1 if what == "window" else 128
+    n_stripes = RC.MAX_STRIPES + 1 if what == "stripes" else 5
+    stripes = torch.zeros(n_stripes, 3, dtype=torch.int32)
+    if kernel == "composite":
+        limit = RC.MAX_CANDIDATES
+        call = lambda: RC.composite_cuda(torch.zeros(2, limit + 1, 8), torch.zeros(80),  # noqa: E731
+                                         torch.zeros(2, 12800, dtype=torch.int32), 160)
+    elif kernel == "ground_pass":
+        limit = RC.MAX_WINDOW if what == "window" else RC.MAX_STRIPES
+        call = lambda: RC.ground_pass_cuda(torch.zeros(2, K0, 8), torch.zeros(2, 8, K0),  # noqa: E731
+                                           torch.zeros(2, 6400), stripes, 6400, 12800, CONSTS)
+    else:
+        limit = RC.MAX_WINDOW if what == "window" else RC.MAX_STRIPES
+        call = lambda: RC.ground_pass_pose_cuda(  # noqa: E731
+            torch.zeros(2, dtype=torch.int32), torch.zeros(1200, 8), torch.zeros(2, 8), K0,
+            torch.zeros(2, 6400), stripes, 6400, 12800, CONSTS)
+    with pytest.raises(ValueError, match=f"between 1 and {limit}"):
+        call()
+    assert RC.LAUNCHES == before
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -386,3 +582,44 @@ def test_ground_kernel_odd_batch_on_card(cuda_device):
     torch.cuda.synchronize()
     assert got.shape == (1000, 12800)
     assert int((got != plain).sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GROUND_EDGE_CASES))
+def test_ground_edge_cases_on_card(cuda_device, case):
+    win, payload, slab, stripes, sky_px, hw = GROUND_EDGE_CASES[case]()
+    w, p, s, st = _cuda(win, payload, slab, stripes, device=cuda_device)
+    got = RC.ground_pass_cuda(w, p, s, st, sky_px, hw, CONSTS)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), _loop_ground(win, payload, slab, stripes, sky_px, hw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(COMPOSITE_EDGE_CASES))
+def test_composite_edge_cases_on_card(cuda_device, case):
+    rows, depth, ground, W = COMPOSITE_EDGE_CASES[case]()
+    r, d, g = _cuda(rows, depth, ground, device=cuda_device)
+    got = RC.composite_cuda(r, d, g, W)
+    torch.cuda.synchronize()
+    got = got.cpu().numpy()
+    np.testing.assert_array_equal(got, _loop_composite(rows, depth, ground, W))
+    _check_composite_edge_case(case, got, rows, ground, W)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(COMPOSITE_EDGE_CASES))
+def test_composite_unaligned_frames_on_card(cuda_device, case):
+    """Ground frames that start 4 bytes past a 16-byte boundary (a
+    contiguous view at storage offset 1) take the scalar pixel loop at any
+    width; it must agree with the loop oracle too."""
+    rows, depth, ground, W = COMPOSITE_EDGE_CASES[case]()
+    r, d = _cuda(rows, depth, device=cuda_device)
+    buf = torch.zeros(ground.size + 1, dtype=torch.int32, device=cuda_device)
+    g = buf[1:].view(ground.shape)
+    g.copy_(torch.as_tensor(ground))
+    assert g.is_contiguous() and g.data_ptr() % 16 != 0
+    got = RC.composite_cuda(r, d, g, W)
+    torch.cuda.synchronize()
+    got = got.cpu().numpy()
+    np.testing.assert_array_equal(got, _loop_composite(rows, depth, ground, W))
+    _check_composite_edge_case(case, got, rows, ground, W)

@@ -12,6 +12,11 @@ on an exact nearest-waypoint tie may round the other way; in practice all
 cases agree exactly. The composite is int32 min/max on identical tables, so
 it must be exactly equal.
 
+The composite's crafted edge cases of tests/test_torch_kernels.py (128
+candidates, coverage edges exactly on pixel centres, equal keys, an env
+with no valid candidate, a width that is not a multiple of 4) are also held exactly against the XLA flat
+composite, fed the same per-candidate scalars.
+
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_kernels.py.
 """
@@ -35,6 +40,7 @@ from carla_ppo_tpu.ops.rasterizer_pallas import (
 )
 from carla_ppo_tpu_torch.ops import rasterizer as TR
 from tests.test_torch_common import port_params, port_state
+from tests.test_torch_kernels import COMPOSITE_EDGE_CASES, EDGE_CAMERA
 
 B = 8
 MIN_AGREEMENT = 0.999
@@ -135,6 +141,32 @@ def test_composite_exact_on_same_tables(case):
     np.testing.assert_array_equal(got, want_pallas)
     np.testing.assert_array_equal(got, want_xla)
     assert (got != np.asarray(ground)).any(), "no billboard drawn: the case tests nothing"
+
+
+@pytest.mark.parametrize("case", sorted(COMPOSITE_EDGE_CASES))
+def test_composite_edge_cases_match_xla(case, monkeypatch):
+    """The plain composite equals the XLA flat composite bit for bit on the
+    crafted edge cases: the JAX package's _billboard_tables and contraction
+    run on the crafted per-candidate scalars (its _billboard_scalars is
+    replaced by a lookup of env i's rows, i carried as the state's
+    waypoint_idx)."""
+    rows, depth, ground, W = COMPOSITE_EDGE_CASES[case]()
+    B = rows.shape[0]
+    cam = R.CameraConfig(**dict(EDGE_CAMERA, width=W))
+    np.testing.assert_array_equal(np.asarray(R._row_geometry(cam)[2], np.float32), depth)
+    table = jnp.asarray(rows)
+
+    def crafted_scalars(state, params, cam):
+        r = table[state["waypoint_idx"]]
+        key = jax.lax.bitcast_convert_type(r[:, 2], jnp.int32)
+        return r[:, 0], r[:, 1], r[:, 4], r[:, 5], key, r[:, 3] > 0.0
+
+    monkeypatch.setattr(R, "_billboard_scalars", crafted_scalars)
+    states = {"waypoint_idx": jnp.arange(B, dtype=jnp.int32)}
+    want = np.asarray(R._composite_billboards_flat(jnp.asarray(ground), states, None, cam))
+    got = TR.composite_plain(torch.as_tensor(rows), torch.as_tensor(depth), torch.as_tensor(ground), W)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want != ground).any()
 
 
 def test_candidate_tables_match():
