@@ -8,15 +8,24 @@
 
 Every other Dense is initialised like flax's default (lecun normal kernel,
 zero bias), not like torch.nn.Linear, from the generator passed in.
+
+`compute_dtype` mirrors the JAX module's `dtype`: parameters stay float32;
+with bfloat16 every Dense casts its input, kernel and bias to bfloat16 and
+rounds the product and the bias add to it (flax `Dense(dtype=bfloat16)`),
+the ReLUs and the tanh run in bfloat16, and the action mean, the value and
+the Gaussian math come back in float32. `with_compute_dtype` gives a twin
+that shares the parameter tensors (the "mixed" recipe's behaviour policy).
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Sequence, Tuple
 
 import torch
 from torch import Tensor, nn
+from torch.nn import functional as F
 
 from carla_ppo_tpu_torch.models.vae import lecun_normal_
 
@@ -30,6 +39,14 @@ def _dense(n_in: int, n_out: int, generator, scale: float = 1.0) -> nn.Linear:
     return layer
 
 
+def linear(layer: nn.Linear, x: Tensor, dtype: torch.dtype = torch.float32) -> Tensor:
+    """`layer(x)` computed in `dtype`, rounding where flax Dense(dtype=) does:
+    after the product and again after the bias add (float32: one call)."""
+    if dtype == torch.float32:
+        return F.linear(x, layer.weight, layer.bias)
+    return torch.matmul(x.to(dtype), layer.weight.to(dtype).t()) + layer.bias.to(dtype)
+
+
 class MLP(nn.Module):
     def __init__(self, n_in: int, hidden_sizes: Sequence[int], output_activation: bool = True,
                  generator: torch.Generator | None = None):
@@ -41,9 +58,9 @@ class MLP(nn.Module):
         self.dense = nn.ModuleList(layers)
         self.output_activation = output_activation
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, dtype: torch.dtype = torch.float32) -> Tensor:
         for i, layer in enumerate(self.dense):
-            x = layer(x)
+            x = linear(layer, x, dtype)
             if i < len(self.dense) - 1 or self.output_activation:
                 x = torch.relu(x)
         return x
@@ -63,9 +80,11 @@ class ActorCritic(nn.Module):
         initial_std: float = 1.0,
         initial_mean_factor: float = 0.1,
         generator: torch.Generator | None = None,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.num_actions = num_actions
+        self.compute_dtype = compute_dtype
         self.register_buffer("action_low", torch.tensor(action_low, dtype=torch.float32))
         self.register_buffer("action_high", torch.tensor(action_high, dtype=torch.float32))
         self.pi = MLP(obs_dim, pi_hidden_sizes, generator=generator)
@@ -78,14 +97,24 @@ class ActorCritic(nn.Module):
         self.value = _dense(vf_out, 1, generator)
 
     def forward(self, obs: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-        """(action_mean [B, A], action_std [A], value [B])."""
-        pi = self.pi(obs)
-        raw_mean = self.action_mean(pi)
+        """(action_mean [B, A], action_std [A], value [B]), float32."""
+        dt = self.compute_dtype
+        pi = self.pi(obs, dt)
+        raw_mean = linear(self.action_mean, pi, dt)
         low, high = self.action_low, self.action_high
+        # (tanh + 1) / 2 stays in the compute dtype; the box scale promotes
+        # to float32, as jnp promotion does in the JAX module.
         action_mean = low + (torch.tanh(raw_mean) + 1.0) / 2.0 * (high - low)
-        vf = pi if self.vf is None else self.vf(obs)
-        value = self.value(vf).squeeze(-1)
-        return action_mean, torch.exp(self.action_logstd), value
+        vf = pi if self.vf is None else self.vf(obs, dt)
+        value = linear(self.value, vf, dt).squeeze(-1)
+        return action_mean.to(torch.float32), torch.exp(self.action_logstd), value.to(torch.float32)
+
+    def with_compute_dtype(self, dtype: torch.dtype) -> "ActorCritic":
+        """A twin computing in `dtype` on the same parameter tensors (a
+        shallow copy: an update of either is seen by both)."""
+        twin = copy.copy(self)
+        twin.compute_dtype = dtype
+        return twin
 
     def sample(
         self,

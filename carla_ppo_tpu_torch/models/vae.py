@@ -7,6 +7,11 @@ layout ([B, H, W, C] floats in [0, 1]); inside, the convolutions run NCHW
 and the encoder flattens NCHW (utils/convert.py permutes the JAX heads'
 rows to match). Only the encode path is ported: the decoder, the losses and
 VAE training wait for a later slice.
+
+`compute_dtype` mirrors the JAX module's `dtype`: parameters stay float32;
+with bfloat16 each conv casts its input, kernel and bias to bfloat16 and
+rounds the convolution and the bias add to it (flax `Conv(dtype=)`), and
+the latent heads run in float32 on the encoder's output cast back.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Sequence, Tuple
 
 import torch
 from torch import Tensor, nn
+from torch.nn import functional as F
 
 # Truncated standard normal on [-2, 2] has this std; flax's variance_scaling
 # divides by it so the truncated draw has the requested variance.
@@ -53,10 +59,15 @@ class ConvEncoder(nn.Module):
             c = f
         self.convs = nn.ModuleList(convs)
 
-    def forward(self, x_nhwc: Tensor) -> Tensor:
+    def forward(self, x_nhwc: Tensor, dtype: torch.dtype = torch.float32) -> Tensor:
         x = x_nhwc.permute(0, 3, 1, 2)
         for conv in self.convs:
-            x = torch.relu(conv(x))
+            if dtype == torch.float32:
+                x = conv(x)
+            else:
+                x = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, stride=2)
+                x = x + conv.bias.to(dtype)[:, None, None]
+            x = torch.relu(x)
         return x.flatten(1)  # NCHW flatten
 
 
@@ -65,8 +76,10 @@ class VAE(nn.Module):
 
     def __init__(self, source_shape: Tuple[int, int, int] = (80, 160, 3), z_dim: int = 64,
                  features: Sequence[int] = (32, 64, 128, 256),
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.source_shape = tuple(source_shape)
         self.z_dim = z_dim
         self.encoder = ConvEncoder(source_shape[-1], features, generator)
@@ -79,7 +92,7 @@ class VAE(nn.Module):
             nn.init.zeros_(head.bias)
 
     def encode_params(self, x: Tensor) -> Tuple[Tensor, Tensor]:
-        h = self.encoder(x).to(torch.float32)
+        h = self.encoder(x, self.compute_dtype).to(torch.float32)
         return self.mean_head(h), self.logstd_head(h)
 
     def encode(self, x: Tensor) -> Tensor:

@@ -1,5 +1,11 @@
 """VAE <-> RL glue (port of carla_ppo_tpu/models/vae_common.py).
 
+Model directories encode their configuration in the NAME (`zdim64`, `mlp`,
+the `seg_` target and `from_seg_` source prefixes): `parse_model_dir` reads
+it and `load_vae` builds the encoder and restores the newest checkpoint of
+the directory's `checkpoints/`, in this port's format (the shipped VAEs are
+converted by scripts/export_torch_checkpoints.py into models/torch/).
+
 `create_encode_batch_fn` builds the latent observation the PPO agent
 consumes, z_mean(64) ++ [steer, throttle, speed], for a whole env batch:
 render the seg camera (ops/rasterizer, CUDA kernels on the card), scale
@@ -10,7 +16,9 @@ bank; rgb frames wait.
 
 from __future__ import annotations
 
-from typing import Callable
+import os
+import re
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -18,6 +26,75 @@ from torch import Tensor
 from carla_ppo_tpu_torch.envs.types import EnvParams, EnvState
 from carla_ppo_tpu_torch.models.vae import VAE
 from carla_ppo_tpu_torch.ops import rasterizer
+from carla_ppo_tpu_torch.utils.checkpoint import Checkpointer
+from carla_ppo_tpu_torch.utils.device import resolve_device
+
+
+def model_dir_name(
+    source: str, loss_type: str, model_type: str, z_dim: int, beta: float,
+    kl_tolerance: float, source_depth: int = 3,
+) -> str:
+    """The directory naming scheme, e.g.
+    seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_data; a 1-channel source adds
+    the "from_seg_" prefix, an RGB target is "rgb_"."""
+    prefix = "seg_" if source == "seg" else "rgb_"
+    if source_depth == 1:
+        prefix = "from_seg_" + prefix
+    beta_s = int(beta) if float(beta).is_integer() else beta
+    return f"{prefix}{loss_type}_{model_type}_zdim{z_dim}_beta{beta_s}_kl_tolerance{kl_tolerance}_data"
+
+
+def parse_model_dir(model_dir: str) -> Tuple[int, str, int, int]:
+    """(z_dim, model_type, target_depth, source_depth) from a model
+    directory's name."""
+    name = os.path.basename(os.path.normpath(model_dir))
+    z = re.findall(r"zdim(\d+)", name)
+    z_dim = int(z[0]) if z else 64
+    model_type = "mlp" if "mlp" in name else "cnn"
+    # The source prefix goes first, so "from_seg_bce_..." (a seg source with
+    # an RGB target) parses as target depth 3.
+    source_depth = 1 if name.startswith("from_seg_") else 3
+    rest = name[len("from_seg_"):] if source_depth == 1 else name
+    target_depth = 1 if rest.startswith("seg_") else 3
+    return z_dim, model_type, target_depth, source_depth
+
+
+def build_vae(
+    z_dim: int, model_type: str, target_depth: int,
+    source_shape: Tuple[int, int, int] = (80, 160, 3),
+    dtype: torch.dtype = torch.float32,
+) -> VAE:
+    """The ConvVAE encoder (the decoder, and so `target_depth`, waits for
+    VAE training, ROADMAP queue A item 7)."""
+    if model_type != "cnn":
+        raise NotImplementedError(
+            f"VAE model_type {model_type!r} is not ported (only 'cnn'; MlpVAE is ROADMAP A7)")
+    return VAE(source_shape=source_shape, z_dim=z_dim, compute_dtype=dtype)
+
+
+def load_vae(
+    model_dir: str,
+    z_dim: Optional[int] = None,
+    model_type: Optional[str] = None,
+    dtype: torch.dtype = torch.float32,
+    device: str | torch.device = "cuda",
+) -> VAE:
+    """Build the encoder named by `model_dir` and restore its newest
+    checkpoint, in eval mode on `device`; raises FileNotFoundError when
+    nothing restores (never runs on seeded weights). `dtype` is the
+    compute dtype only: the weights are float32 either way."""
+    dev = resolve_device(device)
+    p_z, p_type, p_depth, p_src = parse_model_dir(model_dir)
+    model = build_vae(z_dim or p_z, model_type or p_type, p_depth,
+                      source_shape=(80, 160, p_src), dtype=dtype).to(dev)
+    ckpt_dir = os.path.join(model_dir, "checkpoints")
+    tree = None
+    if os.path.isdir(ckpt_dir):
+        tree = Checkpointer(ckpt_dir).restore_latest({"model": model.state_dict()})
+    if tree is None:
+        raise FileNotFoundError(f"Failed to load VAE from {model_dir}")
+    model.load_state_dict(tree["model"])
+    return model.eval()
 
 
 def preprocess_frame(frame: Tensor) -> Tensor:

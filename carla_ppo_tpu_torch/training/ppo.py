@@ -20,6 +20,7 @@ package, so nothing waits on the card mid-iteration.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
@@ -194,6 +195,67 @@ class TrainState:
     episodes_done: int
     generator: torch.Generator
     reward_norm: RunningMoments
+
+    def checkpoint_tree(self) -> Dict[str, Any]:
+        """What utils.checkpoint saves: the model's state_dict, the Adam
+        moments keyed by parameter name, the counters, the reward moments
+        and the generator's state."""
+        names = [n for n, _ in self.model.named_parameters()]
+        opt = self.opt_state
+        return {
+            "model": self.model.state_dict(),
+            "opt_state": {"count": opt.count, "mu": dict(zip(names, opt.mu)),
+                          "nu": dict(zip(names, opt.nu))},
+            "iteration": int(self.iteration),
+            "train_step": int(self.train_step),
+            "total_env_steps": float(self.total_env_steps),
+            "episodes_done": int(self.episodes_done),
+            "reward_norm": dataclasses.asdict(self.reward_norm),
+            "generator": self.generator.get_state(),
+            "generator_device": self.generator.device.type,
+        }
+
+    def restored(self, tree: Dict[str, Any]) -> "TrainState":
+        """A new TrainState from a checkpoint tree, on this state's devices
+        (this one is left as it is).
+
+        A tree without a generator state (one converted from the JAX
+        package, whose PRNG key has no torch counterpart) keeps a copy of
+        this state's generator. A generator state saved on another device
+        type (a CUDA generator's state restored for a CPU run, or the other
+        way round) cannot be set; the copy of this state's generator is kept
+        then too, and a line says so."""
+        model = copy.deepcopy(self.model)
+        model.load_state_dict(tree["model"])
+        dev = next(model.parameters()).device
+        names = [n for n, _ in model.named_parameters()]
+        opt = tree["opt_state"]
+        opt_state = AdamState(
+            count=opt["count"].to(device=dev, dtype=torch.int32),
+            mu=[opt["mu"][n].to(dev) for n in names],
+            nu=[opt["nu"][n].to(dev) for n in names],
+        )
+        generator = torch.Generator(device=self.generator.device)
+        saved = tree.get("generator")
+        if saved is not None and tree.get("generator_device") == self.generator.device.type:
+            generator.set_state(saved)
+        else:
+            if saved is not None:
+                print(f"checkpoint generator was on {tree.get('generator_device')}, this run is on "
+                      f"{self.generator.device.type}: keeping this run's seeded generator", flush=True)
+            generator.set_state(self.generator.get_state())
+        rn = tree["reward_norm"]
+        return TrainState(
+            model=model,
+            opt_state=opt_state,
+            iteration=int(tree["iteration"]),
+            train_step=int(tree["train_step"]),
+            total_env_steps=float(tree["total_env_steps"]),
+            episodes_done=int(tree["episodes_done"]),
+            generator=generator,
+            reward_norm=RunningMoments(**{k: torch.as_tensor(rn[k], dtype=torch.float32).to(dev)
+                                          for k in ("mean", "var", "count")}),
+        )
 
 
 @dataclasses.dataclass
@@ -438,13 +500,21 @@ def train_iteration(
     config: PPOConfig,
     latent_obs: LatentObs | None = None,
     freeze: Tensor | None = None,
+    rollout_model: ActorCritic | None = None,
 ) -> Tuple[TrainState, EnvState, Dict[str, Tensor]]:
     """One PPO iteration: rollout(horizon) -> GAE -> epochs of updates (the
     single-device train_iteration_core of the JAX package). Updates
     train_state's model in place; returns (train_state, env_states,
-    metrics)."""
+    metrics).
+
+    `rollout_model` acts in the rollout in place of train_state.model: the
+    "mixed" recipe passes `model.with_compute_dtype(torch.bfloat16)`, a
+    bfloat16-trunk twin on the same parameters, while the update stays in
+    the model's own dtype. The stored log-probs are the twin's, so the
+    ratio is exact importance sampling."""
     env_states, traj, bootstrap, episodic = rollout(
-        train_state.model, env_states, env_params, train_state.generator,
+        rollout_model if rollout_model is not None else train_state.model,
+        env_states, env_params, train_state.generator,
         config.horizon, config, latent_obs=latent_obs,
     )
     if config.normalize_rewards:

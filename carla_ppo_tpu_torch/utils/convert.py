@@ -7,7 +7,14 @@ neither JAX nor the JAX package:
 - Dense kernel [in, out]            -> torch Linear weight [out, in];
 - Conv kernel HWIO                  -> torch Conv2d weight OIHW;
 - the ConvVAE latent heads: the JAX encoder flattens NHWC, this port's
-  encoder flattens NCHW, so the heads' input rows are permuted.
+  encoder flattens NCHW, so the heads' input rows are permuted;
+- a whole PPO train state (`train_state_tree`): the ActorCritic params, the
+  optax Adam moments `mu` / `nu` (flax param trees, converted exactly like
+  the params, so every moment sits beside its parameter) and `count`, the
+  counters and the reward-normalisation moments, in the tree that
+  utils.checkpoint saves. The JAX PRNG key cannot be carried over: the tree
+  has no generator state, and a restore keeps the template's generator,
+  which the Trainer seeds from TrainerSettings.seed.
 """
 
 from __future__ import annotations
@@ -61,6 +68,36 @@ def actor_critic_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         out[f"{head}.weight"], out[f"{head}.bias"] = dense(p[head]["kernel"], p[head]["bias"])
     out["action_logstd"] = _t(p["action_logstd"])
     return out
+
+
+def train_state_tree(
+    params: Mapping[str, Any],
+    adam: Mapping[str, Any],
+    counters: Mapping[str, Any],
+    reward_norm: Mapping[str, Any],
+    action_low: Tuple[float, ...] = (-1.0, 0.0),
+    action_high: Tuple[float, ...] = (1.0, 1.0),
+) -> Dict[str, Any]:
+    """A JAX TrainState (as numpy trees) -> the checkpoint tree of
+    training.ppo.TrainState, without a generator state.
+
+    `adam` holds optax ScaleByAdamState's `count`, `mu` and `nu`;
+    `counters` the JAX state's `iteration`, `train_step`, `total_env_steps`
+    and `episodes_done`; `reward_norm` its RunningMoments fields."""
+    model = actor_critic_state_dict(params)
+    model["action_low"] = torch.tensor(action_low, dtype=torch.float32)
+    model["action_high"] = torch.tensor(action_high, dtype=torch.float32)
+    moments = {k: actor_critic_state_dict(adam[k]) for k in ("mu", "nu")}
+    return {
+        "model": model,
+        "opt_state": {"count": torch.tensor(int(np.asarray(adam["count"])), dtype=torch.int32),
+                      **moments},
+        "iteration": int(np.asarray(counters["iteration"])),
+        "train_step": int(np.asarray(counters["train_step"])),
+        "total_env_steps": float(np.asarray(counters["total_env_steps"])),
+        "episodes_done": int(np.asarray(counters["episodes_done"])),
+        "reward_norm": {k: _t(reward_norm[k]) for k in ("mean", "var", "count")},
+    }
 
 
 def vae_encoder_state_dict(

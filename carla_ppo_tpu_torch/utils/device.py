@@ -17,6 +17,14 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+def exact_float32() -> None:
+    """Keep float32 matmuls and convolutions in full float32 on the card:
+    TF32 off for both (cuDNN allows it by default), as the JAX package's
+    float32 path and the parity tests assume."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def make_generator(seed: int, device: str | torch.device) -> torch.Generator:
     """A seeded torch.Generator on `device` (never the global RNG)."""
     g = torch.Generator(device=torch.device(device))

@@ -49,7 +49,31 @@ Phases, one line each; any failure raises and exits non-zero:
      pose-fed camera, the unaligned camera and the odd batch, each driven
      over a short lap rollout through its entry point. Each path starts
      with every launch count at 0 and must launch its kernels;
- 10. the kernels line (JSON, one row per TPU kernel), then the last line
+ 10. [trainer] the training entry point: carla_ppo_tpu_torch.cli.train.main
+     in-process at full width (1024 envs, PPOConfig defaults, latent obs
+     through the converted de-prop seg VAE under models/torch/, the default
+     --policy_dtype mixed), 2 iterations with an eval after each, then main
+     again to 3 iterations, which must resume (at iteration >= 1) and end
+     at 3; best_score.json and a best checkpoint must exist, both camera
+     kernels must have launched, and the warm iteration's rollout + update
+     ms and env-steps/s are printed; then 2 iterations of a float32 model
+     (--policy_dtype float32) for comparison, with the VAE encode's and the
+     policy sample's ms per call in each. The model dir is in a temporary
+     directory; two settings differ from the CLI's defaults there: an
+     autosave every iteration (so the resume point is the last iteration)
+     and a 2048-step eval cap (an untrained policy may drive slowly for
+     long);
+ 11. [pretrained] carla_ppo_tpu_torch.cli.run_eval.main --no_video of the
+     converted shipped latent agent (models/torch/latent_agent, step 1450)
+     with the de-prop VAE, 8 greedy envs, capped at PRETRAINED_STEPS
+     (6000): no env may end its episode for a reason other than
+     LAPS_DONE, and the mean distance must
+     be within 5% of the JAX package's own greedy eval of the same orbax
+     checkpoint at the same cap (models/torch/latent_agent/
+     reference_eval_<cap>.json, made on a CPU by
+     scripts/export_torch_checkpoints.py --reference_eval <cap>). Missing
+     converted files fail the phase;
+ 12. the kernels line (JSON, one row per TPU kernel), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Float32 matmuls and convolutions run in full float32 (TF32 off for both).
@@ -62,8 +86,10 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -87,6 +113,16 @@ PIXEL_CAMERA = dict(height=84, width=84)
 CHASE_CAMERA = dict(height=180, width=320, mount_forward=-5.5, mount_height=2.8, pitch_deg=-15.0)
 PALLAS = "carla_ppo_tpu/ops/rasterizer_pallas.py"
 CSRC = "carla_ppo_tpu_torch/csrc"
+REPO = os.path.dirname(os.path.abspath(__file__))
+DEPROP_VAE = os.path.join(REPO, "models", "torch", "vae_models",
+                          "from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data")
+LATENT_AGENT = os.path.join(REPO, "models", "torch", "latent_agent")
+# The [pretrained] drive's cap, ~0.7 of a lap (~1-2 min here). The full 3
+# laps take ~26,350 steps (3.5-7 min): scripts/export_torch_checkpoints.py
+# --reference_eval 30000 and cli.run_eval --eval_max_steps 30000 compare
+# them, by hand.
+PRETRAINED_STEPS = 6000
+PRETRAINED_ENVS = 8
 
 
 def log(msg: str) -> None:
@@ -545,7 +581,11 @@ def main() -> int:
                            lambda s: R.render_batch(s, params, cam, style), "ground_pass"),
     }
 
-    # 10. Results: one row per TPU kernel.
+    # 10. The training entry point; 11. the shipped latent agent.
+    trainer_launches = trainer_phase(torch, ppo, RC, smi)
+    pretrained_launches = pretrained_phase(RC, smi)
+
+    # 12. Results: one row per TPU kernel.
     def row(name, source, replaces, launches, key, err):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}",
                 "replaces": f"{PALLAS}:{replaces}", "launches": launches, "max_abs_err": err,
@@ -571,6 +611,7 @@ def main() -> int:
     ]
     log(f"[launches] lap_bank path: ground_pass {bank_launches['ground_pass']}, "
         f"composite {bank_launches['composite']}")
+    log(f"[launches] trainer path: {trainer_launches}; pretrained path: {pretrained_launches}")
     log(json.dumps({"kernels": kernels}))
     over = [(k["name"], k["bound_share"]) for k in kernels if k["bound_share"] > 1.05]
     if over:
@@ -578,6 +619,142 @@ def main() -> int:
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+@contextlib.contextmanager
+def in_temp_dir():
+    """cwd is a fresh temporary directory (the CLIs write models/<name>
+    under the cwd) for the duration; deleted on exit."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            yield tmp
+        finally:
+            os.chdir(cwd)
+
+
+def trainer_phase(torch, ppo, RC, smi):
+    """[trainer]: cli.train.main at full width, 2 iterations, then resumed
+    to 3; then 2 iterations with --policy_dtype float32 for comparison.
+    Returns the camera kernels' launch counts over the phase."""
+    from carla_ppo_tpu_torch.cli import train as train_cli
+    from carla_ppo_tpu_torch.models.policy import ActorCritic
+    from carla_ppo_tpu_torch.models.vae import VAE
+    from carla_ppo_tpu_torch.training import loop
+
+    @dataclasses.dataclass
+    class SmokeSettings(loop.TrainerSettings):
+        checkpoint_interval: int = 1
+        eval_max_steps: int = 2048
+
+    runs = []
+
+    class RecordingTrainer(loop.Trainer):
+        def train(self, num_iterations=None):
+            start, h0 = self.iteration, time.perf_counter()
+            metrics = super().train(num_iterations)
+            torch.cuda.synchronize()
+            runs.append(dict(start=start, end=self.iteration, metrics=metrics,
+                             seconds=time.perf_counter() - h0, model_dir=os.path.abspath(self.model_dir)))
+            return metrics
+
+    argv = ["--vae_model", DEPROP_VAE, "--eval_interval", "1", "--eval_envs", "4"]
+    stages = [(ppo, "rollout", "rollout"), (ppo, "ppo_update", "update"),
+              (VAE, "encode", "vae_encode"), (ActorCritic, "sample", "policy")]
+    saved = (train_cli.TrainerSettings, train_cli.Trainer)
+    train_cli.TrainerSettings, train_cli.Trainer = SmokeSettings, RecordingTrainer
+    try:
+        with in_temp_dir():
+            RC.reset_launch_counts()
+            h0 = time.perf_counter()
+            with timed_stages(torch, stages) as mixed:
+                train_cli.main(argv + ["--model_name", "smoke", "--num_episodes", "2"])
+            first_s = time.perf_counter() - h0
+            train_cli.main(argv + ["--model_name", "smoke", "--num_episodes", "3"])
+            with timed_stages(torch, stages) as f32:
+                train_cli.main(argv + ["--model_name", "smoke_f32", "--num_episodes", "2",
+                                       "--policy_dtype", "float32"])
+            torch.cuda.synchronize()
+            launches = dict(RC.LAUNCHES)
+            model_dir = runs[1]["model_dir"]
+            best_json = os.path.join(model_dir, "best_score.json")
+            best = sorted(int(e) for e in os.listdir(os.path.join(model_dir, "checkpoints")) if e.isdigit())
+            if not os.path.isfile(best_json) or not best:
+                raise AssertionError(f"no best_score.json or best checkpoint in {model_dir}")
+            with open(best_json) as f:
+                best_score = json.load(f)
+    finally:
+        train_cli.TrainerSettings, train_cli.Trainer = saved
+    first, second, _ = runs
+    log(f"[trainer] cli.train 1024 envs, mixed: run 1 iterations {first['start']}->{first['end']} "
+        f"({first_s:.2f} s with the Trainer's construction, {first['seconds']:.2f} s in train()), "
+        f"run 2 iterations {second['start']}->{second['end']} ({second['seconds']:.2f} s in train()); "
+        f"best checkpoints {best}, best_score.json {best_score}")
+    if first["end"] != 2 or second["start"] < 1 or second["end"] != 3:
+        raise AssertionError(f"the second cli.train run did not resume and end at 3: {runs}")
+    for r in runs:
+        bad = [k for k in ("train_loss/loss", "train/returns") if not math.isfinite(r["metrics"][k])]
+        if bad:
+            raise AssertionError(f"non-finite training metrics through cli.train: {bad}")
+    log(f"[launches] trainer path (the three cli.train runs): {launches}")
+    if launches["ground_pass"] <= 0 or launches["composite"] <= 0:
+        raise AssertionError(f"a camera kernel never launched under cli.train: {launches}")
+    config = ppo.PPOConfig()
+    steps = config.horizon * config.num_envs
+    for dtype, ph in (("mixed", mixed), ("float32", f32)):
+        for i, (roll, upd) in enumerate(zip(ph["rollout"], ph["update"])):
+            r_ms, u_ms = roll[0].elapsed_time(roll[1]), upd[0].elapsed_time(upd[1])
+            log(f"[trainer] {smi}: {dtype} iteration {i} ({'warm' if i else 'cold'}) rollout "
+                f"{r_ms:.3f} ms + update {u_ms:.3f} ms between CUDA events = "
+                f"{steps / (r_ms + u_ms) * 1e3:.1f} env-steps/s")
+        for name in ("vae_encode", "policy"):
+            # the last calls are the last rollout's steps (1024 envs; the
+            # greedy evals' 4-env calls come before them)
+            tail = ph[name][-config.horizon:]
+            d_ms, h_ms = span_ms(tail)
+            log(f"[trainer] {smi}: {dtype} {name}, last rollout's {len(tail)} calls: "
+                f"{d_ms / len(tail):.3f} ms per call between events, host {h_ms / len(tail):.3f} ms")
+    return launches
+
+
+def pretrained_phase(RC, smi):
+    """[pretrained]: cli.run_eval of the converted shipped latent agent,
+    held against the JAX package's greedy eval at the same cap; returns the
+    camera kernels' launch counts."""
+    from carla_ppo_tpu_torch.cli import run_eval as eval_cli
+    from carla_ppo_tpu_torch.envs.types import TerminationReason
+
+    with open(os.path.join(LATENT_AGENT, f"reference_eval_{PRETRAINED_STEPS}.json")) as f:
+        ref = json.load(f)
+    if ref["max_steps"] != PRETRAINED_STEPS or ref["num_envs"] != PRETRAINED_ENVS:
+        raise AssertionError(f"the reference eval is of another drive: {ref['command']}")
+    with in_temp_dir() as tmp:
+        shutil.copytree(LATENT_AGENT, os.path.join(tmp, "models", "torch", "latent_agent"))
+        RC.reset_launch_counts()
+        h0 = time.perf_counter()
+        m = eval_cli.main(["--model_name", "torch/latent_agent", "--vae_model", DEPROP_VAE,
+                           "--num_envs", str(PRETRAINED_ENVS), "--no_video",
+                           "--eval_max_steps", str(PRETRAINED_STEPS)])
+        seconds = time.perf_counter() - h0
+        launches = dict(RC.LAUNCHES)
+    want = ref["metrics"]["eval/distance_traveled"]
+    got = m["eval/distance_traveled"]
+    reasons = {TerminationReason(i).name: m[f"eval/termination_reasons/{i}"]
+               for i in range(len(TerminationReason)) if m[f"eval/termination_reasons/{i}"]}
+    log(f"[pretrained] {smi}: run_eval torch/latent_agent, {PRETRAINED_ENVS} envs, "
+        f"{PRETRAINED_STEPS} steps cap, {seconds:.2f} s: laps {m['eval/laps_completed']:.6g}, "
+        f"distance {got:.6g} m (JAX CPU reference {want:.6g} m, {100 * (got / want - 1):+.3f}%), "
+        f"average centre deviation {m['eval/average_center_lane_deviation']:.6g} m, "
+        f"speed {m['eval/average_speed']:.6g} km/h, episodes by reason {reasons}; launches {launches}")
+    failed = {k: v for k, v in reasons.items() if k not in ("RUNNING", "LAPS_DONE")}
+    if failed:
+        raise AssertionError(f"the shipped latent agent's episodes failed: {failed}")
+    if abs(got / want - 1.0) > 0.05:
+        raise AssertionError(f"distance {got} m is not within 5% of the JAX reference {want} m")
+    if launches["ground_pass"] <= 0 or launches["composite"] <= 0:
+        raise AssertionError(f"a camera kernel never launched under cli.run_eval: {launches}")
+    return launches
 
 
 def _first(states, n: int):

@@ -1,0 +1,168 @@
+#!/usr/bin/env python3
+"""Convert the shipped JAX (orbax) checkpoints into the PyTorch port's format.
+
+    JAX_PLATFORMS=cpu python scripts/export_torch_checkpoints.py [--out models/torch]
+    JAX_PLATFORMS=cpu python scripts/export_torch_checkpoints.py --reference_eval 6000
+
+Needs the JAX package and orbax (it reads the orbax checkpoints); the port
+reads what it writes without either. For each agent the newest step
+becomes `<out>/<name>/checkpoints/<step>/state.pt`: the ActorCritic
+weights, the Adam moments and count, the counters and the reward moments,
+through carla_ppo_tpu_torch.utils.convert.train_state_tree (the JAX PRNG key
+is not carried over). Each VAE's newest step becomes
+`<out>/vae_models/<the JAX directory's name>/checkpoints/<step>/state.pt`,
+encoder and latent heads only; the directory name still carries the
+configuration that vae_common.parse_model_dir reads.
+
+`--reference_eval STEPS` instead runs the JAX package's own greedy eval
+(its Trainer.evaluate, as its cli.run_eval does) of the shipped latent agent
+with the de-prop seg VAE, 8 envs capped at STEPS steps, on the CPU, and
+writes the metrics with the command that made them to
+`<out>/latent_agent/reference_eval_<STEPS>.json`; chip_smoke.py holds the
+port's drive of the converted agent against it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import sys
+import tempfile
+import time
+
+import jax
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from carla_ppo_tpu.envs.observations import vector_obs_dim  # noqa: E402
+from carla_ppo_tpu.models import vae_common  # noqa: E402
+from carla_ppo_tpu.models.policy import ActorCritic  # noqa: E402
+from carla_ppo_tpu.training import ppo  # noqa: E402
+from carla_ppo_tpu.utils.checkpoint import Checkpointer  # noqa: E402
+from carla_ppo_tpu_torch.utils import checkpoint as torch_checkpoint  # noqa: E402
+from carla_ppo_tpu_torch.utils import convert  # noqa: E402
+
+LATENT_OBS_DIM = 67  # z64 ++ steer, throttle, speed
+# (port name, shipped directory, observation width)
+AGENTS = (
+    ("latent_agent", "models/latent_agent_pretrained", LATENT_OBS_DIM),
+    ("route_latent", "models/route_latent_pretrained", LATENT_OBS_DIM),
+    ("lap_agent", "models/pretrained_agent", vector_obs_dim()),
+    ("mixed_agent", "models/mixed_agent_pretrained", vector_obs_dim()),
+)
+DEPROP_VAE = "from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data"
+VAES = (DEPROP_VAE, "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_data")
+REFERENCE_ENVS = 8
+
+
+def np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def restore_agent(src: str, obs_dim: int):
+    """(step, JAX TrainState) of the newest checkpoint under `src`."""
+    template = ppo.create_train_state(ActorCritic(), ppo.PPOConfig(), obs_dim,
+                                      jax.random.PRNGKey(0))
+    ck = Checkpointer(os.path.join(REPO, src, "checkpoints"))
+    step = ck.latest_step()
+    state = ck.restore(step, template)
+    ck.close()
+    return step, state
+
+
+def agent_tree(state) -> dict:
+    """The port's checkpoint tree of a restored JAX TrainState."""
+    # optax.chain(clip_by_global_norm, adam): opt_state[1] is adam's
+    # (ScaleByAdamState, ScaleByScheduleState); both count the updates.
+    adam, schedule = state.opt_state[1]
+    if int(adam.count) != int(schedule.count):
+        raise ValueError(f"adam count {int(adam.count)} != schedule count {int(schedule.count)}")
+    return convert.train_state_tree(
+        np_tree(state.params),
+        {"count": np.asarray(adam.count), "mu": np_tree(adam.mu), "nu": np_tree(adam.nu)},
+        {k: np.asarray(getattr(state, k))
+         for k in ("iteration", "train_step", "total_env_steps", "episodes_done")},
+        {k: np.asarray(getattr(state.reward_norm, k)) for k in ("mean", "var", "count")},
+    )
+
+
+def vae_tree(name: str):
+    """(step, the port's checkpoint tree) of a shipped VAE's newest step."""
+    src = os.path.join(REPO, "vae", "models", name)
+    model, variables = vae_common.load_vae(src)
+    ck = Checkpointer(os.path.join(src, "checkpoints"))
+    step = ck.latest_step()
+    ck.close()
+    sd = convert.vae_encoder_state_dict(np_tree(variables), model._encoded_conv_shape())
+    return step, {"model": sd}
+
+
+def export(out: str) -> None:
+    for name, src, obs_dim in AGENTS:
+        step, state = restore_agent(src, obs_dim)
+        torch_checkpoint.Checkpointer(os.path.join(out, name, "checkpoints")).save(
+            step, agent_tree(state))
+        print(f"{src} step {step} -> {out}/{name}", flush=True)
+    for name in VAES:
+        step, tree = vae_tree(name)
+        torch_checkpoint.Checkpointer(os.path.join(out, "vae_models", name, "checkpoints")).save(
+            step, tree)
+        print(f"vae/models/{name} step {step} -> {out}/vae_models/{name}", flush=True)
+
+
+def reference_eval(out: str, steps: int, command: str) -> dict:
+    """The JAX package's greedy eval of the shipped latent agent, the way
+    its cli.run_eval runs it (a Trainer on a scratch copy of the newest
+    checkpoint, so the shipped directory is not written to)."""
+    from carla_ppo_tpu.training.loop import Trainer, TrainerSettings
+
+    src = os.path.join(REPO, "models/latent_agent_pretrained/checkpoints")
+    step = Checkpointer(src).latest_step()
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(os.path.join(src, str(step)),
+                        os.path.join(tmp, "latent_agent", "checkpoints", str(step)))
+        settings = TrainerSettings(
+            model_name="latent_agent", models_root=tmp, eval_envs=REFERENCE_ENVS,
+            eval_max_steps=steps, vae_model=os.path.join(REPO, "vae/models", DEPROP_VAE),
+        )
+        trainer = Trainer(settings, ppo.PPOConfig(num_envs=REFERENCE_ENVS))
+        t0 = time.perf_counter()
+        metrics = trainer.evaluate()
+        seconds = time.perf_counter() - t0
+        trainer.close()
+    result = {
+        "command": command,
+        "agent": "models/latent_agent_pretrained", "step": int(step),
+        "vae_model": f"vae/models/{DEPROP_VAE}",
+        "num_envs": REFERENCE_ENVS, "max_steps": steps, "device": jax.devices()[0].platform,
+        "seconds": seconds, "metrics": metrics,
+    }
+    path = os.path.join(out, "latent_agent", f"reference_eval_{steps}.json")
+    with open(path, "w") as f:
+        json.dump(result, f, indent=1)
+    print(f"wrote {path}: " + json.dumps(result["metrics"]), flush=True)
+    return result
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", default=os.path.join(REPO, "models", "torch"))
+    parser.add_argument("--reference_eval", type=int, default=0,
+                        help="steps of the JAX greedy-eval reference (0: convert instead)")
+    args = parser.parse_args(argv)
+    if jax.default_backend() != "cpu":
+        raise SystemExit("run on the CPU backend (JAX_PLATFORMS=cpu)")
+    if args.reference_eval > 0:
+        command = ("JAX_PLATFORMS=cpu python scripts/export_torch_checkpoints.py "
+                   f"--reference_eval {args.reference_eval}")
+        reference_eval(args.out, args.reference_eval, command)
+    else:
+        export(args.out)
+
+
+if __name__ == "__main__":
+    main()
