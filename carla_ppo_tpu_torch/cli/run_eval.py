@@ -49,7 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
                         default=True)
     parser.add_argument("--track_seed", type=int, default=0)
     parser.add_argument("--num_npcs", type=int, default=0,
-                        help="NPC traffic during eval (ROADMAP A9)")
+                        help="NPC traffic during eval (enables collision termination)")
     parser.add_argument("--obs_fn", type=str, default="vector",
                         help="ground-truth obs variant the agent was trained "
                              "with (vector | vector_npc)")

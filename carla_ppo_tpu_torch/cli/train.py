@@ -5,13 +5,16 @@ The flags and defaults of carla_ppo_tpu/cli/train.py, plus `--device`
 iterations (one iteration = one rollout + update over the whole env batch).
 Values this port does not run yet raise NotImplementedError naming their
 ROADMAP item: `--obs pixels` (A8), `--num_devices` other than 1 (A10),
-`--record_eval 1` (A12), `--num_npcs` > 0 or `--obs_fn vector_npc` (A9),
-`--vae_source rgb` (A6).
+`--record_eval 1` (A12).
 
 Examples:
   python -m carla_ppo_tpu_torch.cli.train --model_name lap_v0 --num_episodes 200
   python -m carla_ppo_tpu_torch.cli.train --model_name lap_latent \\
       --vae_model models/torch/vae_models/from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data
+  python -m carla_ppo_tpu_torch.cli.train --model_name lap_rgb --vae_source rgb \
+      --vae_model models/torch/vae_models/seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data
+  python -m carla_ppo_tpu_torch.cli.train --model_name traffic --num_npcs 4 --obs_fn vector_npc \
+      --reward_fn reward_traffic_add
 """
 
 from __future__ import annotations

@@ -14,15 +14,17 @@ bank axis, see envs/types.py): each env then reads its own row,
 `state.route_id`, through observations.EnvTrack; `reset` takes the rows as
 `route_id`. The route and lap-bank envs are built on this.
 
-Only the zero-NPC configuration is ported: the NPC tick (reactive traffic,
-NPC collisions, overtake events) waits for the traffic slice and `step`
-raises for `num_npcs > 0`. The NPC state fields stay, because the camera's
-billboard composite always carries the NPC slots (class NONE here).
+NPC traffic (`params.num_npcs` > 0) is ticked inside `step` (`_npc_tick`):
+car-following over the [M, M+1] gaps to every NPC and the ego, speed
+jitter, lateral wander with the lane-keeping spring, NPC-ego collisions and
+overtake events. With no NPC the slots only drift along the track, and the
+camera's billboard composite still carries them (class NONE).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -30,7 +32,7 @@ from torch import Tensor
 
 from carla_ppo_tpu_torch.envs import geometry, rewards
 from carla_ppo_tpu_torch.envs.dynamics import vehicle_step
-from carla_ppo_tpu_torch.envs.observations import encode_state_fns, env_track
+from carla_ppo_tpu_torch.envs.observations import EnvTrack, encode_state_fns, env_track
 from carla_ppo_tpu_torch.envs.types import (
     NUM_NPC_SLOTS,
     EnvParams,
@@ -176,8 +178,6 @@ def step(
     """One synchronous tick of every env. `action` [B, 2] = (steer, throttle),
     an optional 3rd column is an unsmoothed brake. `obs_fn=None` skips the
     observation (the latent path builds its own from the camera)."""
-    if params.num_npcs > 0:
-        raise NotImplementedError("NPC traffic is not ported yet (num_npcs must be 0)")
     track = params.track
     et = env_track(track, state.route_id)
     action = action.to(torch.float32)
@@ -222,9 +222,10 @@ def step(
     lane_invasion = (ego_lat > lw) | (ego_lat < -rw)
     collision = (ego_lat > lw + 1.5) | (ego_lat < -(rw + 1.5))
 
-    # Zero-NPC traffic: the slots only drift along the track (inert).
-    npc_s = state.npc_s + state.npc_speed * params.dt
-    npc_just_passed = torch.zeros_like(state.npc_just_passed)
+    npc_s, npc_lateral, npc_hit, npc_just_passed = _npc_tick(state, params, et, waypoint_idx,
+                                                             ego_lat)
+    if npc_hit is not None:
+        collision = collision | npc_hit
 
     step_count = state.step_count + 1
     over_distance = distance_traveled >= params.max_distance_traveled
@@ -250,6 +251,7 @@ def step(
         collision=collision,
         lane_invasion=lane_invasion,
         npc_s=npc_s,
+        npc_lateral=npc_lateral,
         npc_just_passed=npc_just_passed,
         npc_overtakes=state.npc_overtakes + npc_just_passed,
     )
@@ -289,6 +291,85 @@ def step(
         npc_overtakes=next_state.npc_overtakes,
     )
     return next_state, out
+
+
+def _npc_tick(
+    state: EnvState, params: EnvParams, et: EnvTrack, waypoint_idx: Tensor, ego_lat: Tensor
+) -> Tuple[Tensor, Tensor, Optional[Tensor], Tensor]:
+    """(npc_s, npc_lateral, NPC-ego hit or None, npc_just_passed), each
+    [B, M] or [B]: one tick of the NPC slots (on `et`, step's view of each
+    env's track) against the ego's new waypoint index and signed lateral
+    offset, with the JAX package's operations in its order (lap_env.step
+    there). Gaps are along-track, wrapped to the nearest representative on
+    loops."""
+    if params.num_npcs == 0:
+        npc_s = state.npc_s + state.npc_speed * params.dt
+        return npc_s, state.npc_lateral, None, torch.zeros_like(state.npc_just_passed)
+    track = params.track
+    M = state.npc_s.shape[1]
+    dev = state.npc_s.device
+    active = torch.arange(M, device=dev) < params.num_npcs  # [M]
+    length_f = float(et.length) if et.rows is None else et.length.to(torch.float32)[:, None]
+    ego_s = waypoint_idx.to(torch.float32)
+
+    def wrap_gap(gap: Tensor, length=length_f) -> Tensor:
+        if not track.is_loop:
+            return gap
+        return torch.remainder(gap + length / 2.0, length) - length / 2.0
+
+    if params.npc_reactive:
+        slot_f = torch.arange(M, dtype=torch.float32, device=dev)[None, :]
+        t_step = state.step_count.to(torch.float32)[:, None]
+        # (a) car-following over [M, M+1] gaps (every NPC and the ego).
+        others_s = torch.cat([state.npc_s, ego_s[:, None]], 1)
+        others_lat = torch.cat([state.npc_lateral, ego_lat[:, None]], 1)
+        others_active = torch.cat([active, torch.ones(1, dtype=torch.bool, device=dev)])
+        gap_len = length_f if et.rows is None else length_f[:, :, None]
+        gaps = wrap_gap(others_s[:, None, :] - state.npc_s[:, :, None], gap_len)  # [B, M, M+1]
+        in_lane = (others_lat[:, None, :] - state.npc_lateral[:, :, None]).abs() < params.npc_follow_lat
+        ahead = (gaps > 0.1) & in_lane & others_active
+        gap_ahead = torch.where(ahead, gaps, torch.full_like(gaps, math.inf)).amin(2)
+        follow = torch.clamp(
+            (gap_ahead - params.npc_follow_min)
+            / max(params.npc_follow_dist - params.npc_follow_min, 1e-3),
+            0.0, 1.0,
+        )
+        # (b) speed jitter, a per-slot phase by the golden angle.
+        jitter = 1.0 + params.npc_speed_jitter * torch.sin(0.23 * t_step + 2.39996 * slot_f)
+        npc_speed_eff = state.npc_speed * jitter * follow
+        # (c) lateral wander and the lane-keeping spring, clamped to the road
+        # at the NPC's waypoint less a half-car margin.
+        if track.is_loop:
+            npc_wp = torch.remainder(state.npc_s, length_f)
+        else:
+            npc_wp = torch.minimum(torch.clamp(state.npc_s, min=0.0), length_f - 1.0)
+        npc_wp = npc_wp.to(torch.int32)
+        npc_lw = et.gather(track.left_width, npc_wp)
+        npc_rw = et.gather(track.right_width, npc_wp)
+        wander = params.npc_wander_rate * torch.sin(0.11 * t_step + 2.39996 * slot_f + 1.0)
+        keep = params.npc_keep_gain * (params.npc_keep_lat - state.npc_lateral)
+        npc_lateral = torch.minimum(
+            torch.maximum(state.npc_lateral + (wander + keep) * params.dt, -(npc_rw - 0.8)),
+            npc_lw - 0.8,
+        )
+    else:
+        npc_speed_eff = state.npc_speed
+        npc_lateral = state.npc_lateral
+    npc_s = state.npc_s + npc_speed_eff * params.dt
+
+    ds = wrap_gap(npc_s - ego_s[:, None])
+    hit = (
+        active
+        & (ds.abs() < params.npc_collision_s)
+        & ((npc_lateral - ego_lat[:, None]).abs() < params.npc_collision_lat)
+    ).any(1)
+    # Overtakes: a gap that flips from ahead to behind this tick. An NPC
+    # lapping a slower ego flips +L/2 -> -L/2 with a ~L jump; requiring a
+    # small step keeps that wrap artifact from counting as a pass.
+    ds_old = wrap_gap(state.npc_s - state.waypoint_idx.to(torch.float32)[:, None])
+    small_step = (ds_old - ds).abs() < length_f / 4.0
+    passed = active & (ds_old > 0.0) & (ds <= 0.0) & small_step
+    return npc_s, npc_lateral, hit, passed.to(torch.float32).sum(1)
 
 
 def select_envs(mask: Tensor, if_true: EnvState, if_false: EnvState) -> EnvState:

@@ -1,8 +1,8 @@
 """Observation builders (port of carla_ppo_tpu/envs/observations.py).
 
-The "vector" family (ground-truth road-relative features) and the
-measurements appended to VAE latents. The NPC radar features wait for the
-traffic slice.
+The "vector" family (ground-truth road-relative features, and with
+"vector_npc" the radar-style NPC features), and the measurements appended
+to VAE latents.
 """
 
 from __future__ import annotations
@@ -106,6 +106,67 @@ def vector_obs_dim() -> int:
     return 6 + 2 * len(PREVIEW_OFFSETS)
 
 
+# Radar range for the NPC-traffic features (meters of along-track gap).
+NPC_RADAR_RANGE = 50.0
+
+
+def npc_gaps(state: EnvState, params: EnvParams) -> tuple[Tensor, Tensor, Tensor]:
+    """Frenet gaps ego -> each NPC slot: (ds [B, M], dlat [B, M], active
+    [M]). `ds` is along-track in waypoint units (positive = NPC ahead),
+    wrapped to the nearest representative on loops, the same math as the
+    collision test in lap_env.step; `dlat` is the NPC's lateral offset
+    relative to the ego. Shared by the radar observation and the traffic
+    reward."""
+    track = params.track
+    et = env_track(track, state.route_id)
+    cur = et.gather(track.pos, state.waypoint_idx)
+    nxt = et.gather(track.pos, state.waypoint_idx + 1)
+    ego_lat = geometry.signed_distance_to_line(cur, nxt, state.vehicle.pos)
+    length_f = float(et.length) if et.rows is None else et.length.to(torch.float32)[:, None]
+    ego_s = state.waypoint_idx.to(torch.float32)
+    active = torch.arange(state.npc_s.shape[1], device=state.npc_s.device) < params.num_npcs
+    ds = state.npc_s - ego_s[:, None]
+    if track.is_loop:
+        ds = torch.remainder(ds + length_f / 2.0, length_f) - length_f / 2.0
+    return ds, state.npc_lateral - ego_lat[:, None], active
+
+
+def vector_npc_obs(state: EnvState, params: EnvParams) -> Tensor:
+    """`vector_obs` ++ radar-style traffic features, [B, 18 + 6] float32:
+    for the nearest live NPC ahead, then the nearest behind, its gap /
+    NPC_RADAR_RANGE (1.0 when none is in range), its lateral offset /
+    max_distance and its closing speed (ego - NPC) / target_speed (both 0
+    when none is in range)."""
+    base = vector_obs(state, params)
+    rp = params.reward
+    ds, dlat, active = npc_gaps(state, params)
+    speed = state.vehicle.speed
+
+    def radar(gap: Tensor) -> list:
+        masked = torch.where(active & (gap >= 0.0), gap, torch.full_like(gap, math.inf))
+        nearest, idx = masked.min(1)  # the first minimum, as jnp.argmin
+        in_range = nearest < NPC_RADAR_RANGE
+        rel_lat = dlat.gather(1, idx[:, None])[:, 0] / rp.max_distance
+        npc_speed = state.npc_speed.gather(1, idx[:, None])[:, 0]
+        closing = 3.6 * (speed - npc_speed) / rp.target_speed
+        return [
+            torch.where(in_range, nearest / NPC_RADAR_RANGE, torch.ones_like(nearest)),
+            torch.where(in_range, rel_lat, torch.zeros_like(rel_lat)),
+            torch.where(in_range, closing, torch.zeros_like(closing)),
+        ]
+
+    feats = radar(ds) + radar(-ds)
+    return torch.cat([base, torch.stack(feats, -1).to(torch.float32)], 1)
+
+
+def vector_npc_obs_dim() -> int:
+    return vector_obs_dim() + 6
+
+
+def obs_dim_for(obs_fn: str) -> int:
+    return {"vector": vector_obs_dim(), "vector_npc": vector_npc_obs_dim()}[obs_fn]
+
+
 def measurements(state: EnvState) -> Tensor:
     """[B, 3] = [steer, throttle, speed (m/s)] appended to VAE latents."""
     return torch.stack(
@@ -115,4 +176,4 @@ def measurements(state: EnvState) -> Tensor:
 
 ObsFn = Callable[[EnvState, EnvParams], Tensor]
 
-encode_state_fns: Dict[str, ObsFn] = {"vector": vector_obs}
+encode_state_fns: Dict[str, ObsFn] = {"vector": vector_obs, "vector_npc": vector_npc_obs}

@@ -2,7 +2,7 @@
 
 Same registry and the same `create_reward_fn`-style wrapper (`step_reward`):
 per-env low-speed timer, off-center and optional over-speed termination, a
-flat terminal penalty. The traffic-shaped reward waits for the traffic slice.
+flat terminal penalty; and the traffic-shaped `reward_traffic_add`.
 """
 
 from __future__ import annotations
@@ -67,6 +67,45 @@ def reward_speed_centering_angle_multiply(state: EnvState, params: EnvParams) ->
         _speed_reward(3.6 * state.vehicle.speed, rp)
         * _centering_factor(state, rp)
         * _angle_factor(state, rp)
+    )
+
+
+# Traffic shaping constants (see the JAX rewards module for their history):
+# the along-track window around an NPC in which an offset ego counts as
+# passing, the lateral offset from the NPC that makes it a pass and not
+# following, and the proximity penalty's range (m) and scale.
+OVERTAKE_WINDOW = 15.0
+PASS_LATERAL_MIN = 1.2
+PROXIMITY_RANGE = 6.0
+PROXIMITY_SCALE = 1.5
+
+
+@register("reward_traffic_add")
+def reward_traffic_add(state: EnvState, params: EnvParams) -> Tensor:
+    """gate * (speed + centering' + angle) - proximity + pass_bonus *
+    overtakes: centering is waived while passing (a live NPC within
+    OVERTAKE_WINDOW along-track with the ego offset from it by more than
+    PASS_LATERAL_MIN); the positive sum is scaled by blocked_scale while a
+    live NPC sits ahead in-lane within block_range; the proximity penalty
+    ramps to PROXIMITY_SCALE at the collision box; each completed overtake
+    this step pays pass_bonus."""
+    from carla_ppo_tpu_torch.envs.observations import npc_gaps
+
+    rp = params.reward
+    ds, dlat, active = npc_gaps(state, params)
+    passing = (active & (ds.abs() < OVERTAKE_WINDOW) & (dlat.abs() > PASS_LATERAL_MIN)).any(1)
+    centering = torch.where(passing, torch.ones_like(ds[:, 0]), _centering_factor(state, rp))
+    blocked = (active & (ds > 0.0) & (ds < rp.block_range) & (dlat.abs() < PASS_LATERAL_MIN)).any(1)
+    gate = torch.where(blocked, torch.full_like(centering, rp.blocked_scale), torch.ones_like(centering))
+    slack_s = torch.clamp(ds.abs() - params.npc_collision_s, min=0.0)
+    slack_l = torch.clamp(dlat.abs() - params.npc_collision_lat, min=0.0)
+    clearance = torch.sqrt(slack_s**2 + slack_l**2)
+    closeness = torch.clamp(1.0 - clearance / PROXIMITY_RANGE, min=0.0)
+    danger = torch.where(active, closeness, torch.zeros_like(closeness)).amax(1)
+    return (
+        gate * (_speed_reward(3.6 * state.vehicle.speed, rp) + centering + _angle_factor(state, rp))
+        - PROXIMITY_SCALE * danger
+        + rp.pass_bonus * state.npc_just_passed
     )
 
 

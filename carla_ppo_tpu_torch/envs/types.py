@@ -174,8 +174,8 @@ class RewardParams:
 class EnvParams:
     """Environment configuration + baked track data.
 
-    Only the zero-NPC lap configuration is ported: `num_npcs > 0` (the NPC
-    tick and traffic rewards) raises in lap_env.step."""
+    NPC traffic (`num_npcs` > 0 live slots of NUM_NPC_SLOTS) is ticked in
+    lap_env.step; see the JAX EnvParams for what each NPC knob does."""
 
     track: TrackData
     vehicle: VehicleParams = VehicleParams()
@@ -193,6 +193,16 @@ class EnvParams:
     num_npcs: int = 0
     npc_min_speed: float = 4.0
     npc_max_speed: float = 7.0
+    npc_collision_s: float = 4.0  # ego-overlap box half-length (m)
+    npc_collision_lat: float = 1.5  # ... and half-width (m)
+    npc_reactive: bool = True  # car-following, speed jitter, lateral wander
+    npc_follow_lat: float = 1.2
+    npc_follow_min: float = 6.0
+    npc_follow_dist: float = 14.0
+    npc_speed_jitter: float = 0.12
+    npc_wander_rate: float = 1.5
+    npc_keep_lat: float = 0.0  # lane-keeping spring home (m)
+    npc_keep_gain: float = 0.0  # and rate (1/s); 0 = free wander
     physics_substeps: int = 2
     reward_fn: str = "reward_speed_centering_angle_multiply"
     dynamics_model: str = "kinematic"

@@ -8,10 +8,11 @@ converted by scripts/export_torch_checkpoints.py into models/torch/).
 
 `create_encode_batch_fn` builds the latent observation the PPO agent
 consumes, z_mean(64) ++ [steer, throttle, speed], for a whole env batch:
-render the seg camera (ops/rasterizer, CUDA kernels on the card), scale
-classes by 1/12, encode with the frozen VAE. The seg source is ported, on
-a shared track and (`banked=True`, the route and lap-bank envs) on a track
-bank; rgb frames wait.
+render the camera (ops/rasterizer, CUDA kernels on the card), encode with
+the frozen VAE. `source="seg"` feeds the seg frame scaled by 1/12;
+`source="rgb"` the shaded pseudo-RGB frame (the reference's deployed
+observation path). Both on a shared track and (`banked=True`, the route
+and lap-bank envs) on a track bank.
 """
 
 from __future__ import annotations
@@ -64,12 +65,11 @@ def build_vae(
     source_shape: Tuple[int, int, int] = (80, 160, 3),
     dtype: torch.dtype = torch.float32,
 ) -> VAE:
-    """The ConvVAE encoder (the decoder, and so `target_depth`, waits for
-    VAE training, ROADMAP queue A item 7)."""
-    if model_type != "cnn":
-        raise NotImplementedError(
-            f"VAE model_type {model_type!r} is not ported (only 'cnn'; MlpVAE is ROADMAP A7)")
-    return VAE(source_shape=source_shape, z_dim=z_dim, compute_dtype=dtype)
+    """The whole VAE (ConvVAE for "cnn", MlpVAE for "mlp"), its decoder
+    emitting `target_depth` channels at the source's height and width."""
+    return VAE(source_shape=source_shape, z_dim=z_dim, compute_dtype=dtype,
+               target_shape=(source_shape[0], source_shape[1], target_depth),
+               model_type=model_type)
 
 
 def load_vae(
@@ -79,7 +79,7 @@ def load_vae(
     dtype: torch.dtype = torch.float32,
     device: str | torch.device = "cuda",
 ) -> VAE:
-    """Build the encoder named by `model_dir` and restore its newest
+    """Build the VAE named by `model_dir` and restore its newest
     checkpoint, in eval mode on `device`; raises FileNotFoundError when
     nothing restores (never runs on seeded weights). `dtype` is the
     compute dtype only: the weights are float32 either way."""
@@ -113,18 +113,21 @@ def create_encode_batch_fn(
 ) -> Callable[[EnvState, EnvParams], Tensor]:
     """Batch latent observations: a function (states, params) -> [B, z + m].
     `banked=True` for batches whose params.track is a bank indexed by
-    states.route_id."""
-    if source != "seg":
-        raise NotImplementedError(f"VAE source {source!r} is not ported (only 'seg')")
+    states.route_id. `source` is "seg" or "rgb"."""
+    if source not in ("seg", "rgb"):
+        raise ValueError(f"unknown VAE source {source!r}")
     flags = tuple(m in measurements_to_include for m in ("steer", "throttle", "speed"))
     src_depth = model.source_shape[-1]
     render = rasterizer.render_batch_banked if banked else rasterizer.render_batch
 
     @torch.no_grad()
     def encode_batch(states: EnvState, params: EnvParams) -> Tensor:
-        frames = rasterizer.seg_to_obs(render(states, params, cam))
-        if src_depth != 1:
-            frames = frames.expand(*frames.shape[:-1], src_depth)
+        if source == "rgb":
+            frames = rasterizer.render_rgb_batch(states, params, cam)  # [B, H, W, 3]
+        else:
+            frames = rasterizer.seg_to_obs(render(states, params, cam))
+            if src_depth != 1:
+                frames = frames.expand(*frames.shape[:-1], src_depth)
         feats = [model.encode(frames)]
         if flags[0]:
             feats.append(states.control[:, 0:1])

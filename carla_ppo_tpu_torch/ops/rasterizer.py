@@ -27,6 +27,14 @@ plain versions for CPU tensors; any other device raises. Only the prep
 reads the track, so both take the same two kernels on any camera (aligned
 or not) and any batch size.
 
+`render_rgb_batch` is the shaded pseudo-RGB camera (the VAE's RGB
+source): the same ground pass, then the composite's depth-and-sky mode
+(`composite_depth_sky`: kernel `composite_depth_sky_cuda`, the same
+csrc/composite.cu; plain `composite_plain(..., return_depth_sky=True)`),
+then the palette, depth fog and sky gradient in plain torch (`_shade_rgb`,
+elementwise as in the JAX package). It takes a shared track or a bank.
+`render_rgb_and_semantic` is the batch-of-one form that cli.collect_data calls.
+
 `render_batch_pose` is a third ground pass for a shared track: the window
 fetch and the camera rotation move into the kernel (`ground_pass_pose`,
 csrc/ground_pass_pose.cu), fed by a wrap-baked table and one 8-float pose
@@ -435,10 +443,15 @@ def prep_candidates(states: EnvState, params: EnvParams, cam: CameraConfig) -> T
 
 
 def composite_plain(
-    rows: Tensor, depth_rows: Tensor, ground: Tensor, W: int, env_chunk: int = 32
-) -> Tensor:
+    rows: Tensor, depth_rows: Tensor, ground: Tensor, W: int, env_chunk: int = 32,
+    return_depth_sky: bool = False,
+):
     """Plain PyTorch version of the composite kernel: the same function,
-    [B, H*W] int32, as the [chunk, N, H, W] min-max contraction."""
+    [B, H*W] int32, as the [chunk, N, H, W] min-max contraction. With
+    return_depth_sky, (classes, depth [B, H*W] float32, sky [B, H*W] bool):
+    the billboard's depth where it is visible, else the row's ground depth;
+    sky on rows of infinite ground depth (the sky rows) where no billboard
+    is visible."""
     B, N, _ = rows.shape
     H = depth_rows.shape[0]
     dev = rows.device
@@ -447,6 +460,10 @@ def composite_plain(
     imax = torch.tensor(IMAX, dtype=torch.int32, device=dev)
     imin = torch.tensor(IMIN, dtype=torch.int32, device=dev)
     out = torch.empty_like(ground)
+    if return_depth_sky:
+        out_depth = torch.empty(ground.shape, dtype=torch.float32, device=dev)
+        out_sky = torch.empty(ground.shape, dtype=torch.bool, device=dev)
+        sky_rows = torch.isinf(depth_rows)[None, :, None]
     for e0 in range(0, B, env_chunk):
         e1 = min(B, e0 + env_chunk)
         r = rows[e0:e1]
@@ -460,6 +477,12 @@ def composite_plain(
         visible = best_d < depth_rows[None, :, None]
         g = ground[e0:e1].view(-1, H, W)
         out[e0:e1] = torch.where(visible, best & 15, g).reshape(e1 - e0, H * W)
+        if return_depth_sky:
+            d = torch.where(visible, best_d, depth_rows[None, :, None])
+            out_depth[e0:e1] = d.reshape(e1 - e0, H * W)
+            out_sky[e0:e1] = (sky_rows & ~visible).reshape(e1 - e0, H * W)
+    if return_depth_sky:
+        return out, out_depth, out_sky
     return out
 
 
@@ -471,6 +494,18 @@ def composite(rows: Tensor, ground: Tensor, cam: CameraConfig) -> Tensor:
         return rasterizer_cuda.composite_cuda(rows, depth_rows, ground, cam.width)
     if rows.device.type == "cpu":
         return composite_plain(rows, depth_rows, ground, cam.width)
+    raise ValueError(f"no composite for device {rows.device}")
+
+
+def composite_depth_sky(rows: Tensor, ground: Tensor, cam: CameraConfig) -> Tuple[Tensor, Tensor, Tensor]:
+    """(classes, depth, sky), each [B, H*W]: the composite's depth-and-sky
+    mode, the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    _, _, _, depth_rows = _device_layout(cam, str(rows.device))
+    if rows.device.type == "cuda":
+        return rasterizer_cuda.composite_depth_sky_cuda(rows, depth_rows, ground, cam.width)
+    if rows.device.type == "cpu":
+        return composite_plain(rows, depth_rows, ground, cam.width, return_depth_sky=True)
     raise ValueError(f"no composite for device {rows.device}")
 
 
@@ -610,3 +645,112 @@ def render_batch_pose(
 def seg_to_obs(cls: Tensor) -> Tensor:
     """Class ids -> float [..., H, W, 1] in [0, 1] (class / 12)."""
     return (cls.to(torch.float32) / 12.0)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# The RGB camera
+# ---------------------------------------------------------------------------
+
+# CARLA's 13-class palette, RGB in [0, 1].
+_PALETTE = (
+    (0, 0, 0), (70, 70, 70), (190, 153, 153), (72, 0, 90), (220, 20, 60),
+    (153, 153, 153), (157, 234, 50), (128, 64, 128), (244, 35, 232),
+    (107, 142, 35), (0, 0, 255), (102, 102, 156), (220, 220, 0),
+)
+SEG_PALETTE = torch.tensor(_PALETTE, dtype=torch.float32) / 255.0
+_HAZE = (0.74, 0.78, 0.82)
+_ZENITH = (0.35, 0.52, 0.78)
+NOISE_STD = 0.02  # texture noise, per channel and pixel
+
+
+@functools.lru_cache(maxsize=None)
+def _shade_constants(cam: CameraConfig, device: str) -> Tuple[Tensor, Tensor, Tensor]:
+    """(palette [13, 3], haze [3], sky colour per pixel [H*W, 3]) on
+    `device`; the sky gradient runs from haze at the horizon to zenith blue,
+    by the pixel's vertical ray component in float32."""
+    dev = torch.device(device)
+    v = torch.arange(cam.height, dtype=torch.float32).repeat_interleave(cam.width) + 0.5
+    pitch = torch.deg2rad(torch.tensor(cam.pitch_deg, dtype=torch.float32))
+    vert = (cam.height / 2.0 - v) / cam.focal + torch.tan(pitch)
+    sky_t = torch.clamp(vert / 0.5, 0.0, 1.0)[:, None]
+    haze = torch.tensor(_HAZE, dtype=torch.float32)
+    zenith = torch.tensor(_ZENITH, dtype=torch.float32)
+    sky_rgb = haze * (1.0 - sky_t) + zenith * sky_t
+    return SEG_PALETTE.to(dev), haze.to(dev), sky_rgb.to(dev)
+
+
+def seg_to_rgb(cls: Tensor) -> Tensor:
+    """Palette render, [..., H, W] -> [..., H, W, 3] float in [0, 1] (a
+    gather of palette rows; the JAX package's one-hot matmul gives the same
+    float32 values)."""
+    return SEG_PALETTE.to(cls.device)[cls.long()]
+
+
+def _shade_rgb(cls: Tensor, depth: Tensor, sky: Tensor, cam: CameraConfig,
+               noise: Tensor | torch.Generator | None = None) -> Tensor:
+    """Palette + depth fog + sky gradient: [B, H*W] classes, depth and sky
+    -> [B, H, W, 3] float32. `noise`: a generator for N(0, 1) texture noise
+    (scaled by NOISE_STD, then clipped to [0, 1]), or the [B, H, W, 3]
+    standard-normal draw itself."""
+    B = cls.shape[0]
+    palette, haze, sky_rgb = _shade_constants(cam, str(cls.device))
+    base = palette[cls.long()]  # [B, P, 3]
+    fog = torch.clamp(torch.where(sky, torch.zeros_like(depth), depth) / 250.0, 0.0, 1.0)[..., None]
+    ground_rgb = base * (1.0 - fog) + haze * fog
+    rgb = torch.where(sky[..., None], sky_rgb, ground_rgb).view(B, cam.height, cam.width, 3)
+    if noise is not None:
+        if isinstance(noise, torch.Generator):
+            noise = torch.randn(rgb.shape, generator=noise, device=rgb.device)
+        rgb = torch.clamp(rgb + NOISE_STD * noise, 0.0, 1.0)
+    return rgb
+
+
+def _static_depth_sky(cam: CameraConfig, device: str) -> Tuple[Tensor, Tensor]:
+    """Per-pixel (depth [H*W] float32, sky [H*W] bool) of the ground alone:
+    the row's ground depth (inf on sky rows) and the sky rows."""
+    _, _, _, depth_rows = _device_layout(cam, device)
+    depth = depth_rows.repeat_interleave(cam.width)
+    return depth, torch.isinf(depth)
+
+
+def _rgb_and_classes(
+    states: EnvState, params: EnvParams, cam: CameraConfig, style: RoadStyle,
+    noise: Tensor | torch.Generator | None,
+) -> Tuple[Tensor, Tensor]:
+    """([B, H, W, 3] RGB, [B, H*W] int32 classes): the ground pass, the
+    composite's depth-and-sky mode, then the shade."""
+    win_cols, payload = prep_windows(states, params, cam)
+    ground = ground_pass(win_cols, payload, cam, style)
+    if cam.render_props:
+        cls, depth, sky = composite_depth_sky(prep_candidates(states, params, cam), ground, cam)
+    else:
+        depth0, sky0 = _static_depth_sky(cam, str(ground.device))
+        cls, depth, sky = ground, depth0.expand_as(ground), sky0.expand_as(ground)
+    return _shade_rgb(cls, depth, sky, cam, noise), cls
+
+
+def render_rgb_batch(
+    states: EnvState,
+    params: EnvParams,
+    cam: CameraConfig = CameraConfig(),
+    style: RoadStyle = RoadStyle(),
+    noise: Tensor | torch.Generator | None = None,
+) -> Tensor:
+    """[B, H, W, 3] shaded pseudo-RGB frames in [0, 1], from the shared
+    track or each env's bank row: the ground pass, the composite's
+    depth-and-sky mode, then the shade. `noise` as in _shade_rgb."""
+    return _rgb_and_classes(states, params, cam, style, noise)[0]
+
+
+def render_rgb_and_semantic(
+    state: EnvState, params: EnvParams, cam: CameraConfig = CameraConfig(),
+    style: RoadStyle = RoadStyle(), noise: Tensor | torch.Generator | None = None,
+) -> Tuple[Tensor, Tensor]:
+    """One env's (RGB frame [H, W, 3], seg frame [H, W] int32) from a batch
+    of one, in one render: the classes the RGB frame was shaded from are
+    the seg frame (the depth-and-sky composite's classes equal the
+    class-only composite's)."""
+    if state.batch_size != 1:
+        raise ValueError(f"expected a batch of one env, got {state.batch_size}")
+    rgb, cls = _rgb_and_classes(state, params, cam, style, noise)
+    return rgb[0], cls[0].view(cam.height, cam.width)

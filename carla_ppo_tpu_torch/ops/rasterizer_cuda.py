@@ -4,6 +4,9 @@
   v4, v3d, v3c: the same function under other TPU layouts)
 - `ground_pass_pose_cuda`  <- rasterizer_pallas.render_batch_pallas_v6
 - `composite_cuda`         <- rasterizer_pallas.composite_billboards_pallas
+- `composite_depth_sky_cuda` <- the same kernel's depth-and-sky mode, which
+  the RGB camera needs (on the TPU the XLA _composite_billboards_flat with
+  return_depth_sky=True; the Pallas composite is class-only)
 
 Each wrapper checks the kernels' size limits (at most MAX_CANDIDATES
 billboard candidates, a window of at most MAX_WINDOW waypoints, at most
@@ -12,7 +15,7 @@ anything else, allocates its output with torch.empty, launches on the
 current stream, raises on a non-zero launch status, and adds one to its
 entry in LAUNCHES per launch. Their plain PyTorch versions live in
 ops/rasterizer.py (`ground_pass_plain`, `ground_pass_pose_plain`,
-`composite_plain`); the dispatch there takes the plain version only for
+`composite_plain`, which also takes return_depth_sky); the dispatch there takes the plain version only for
 CPU tensors.
 """
 
@@ -30,7 +33,7 @@ MAX_WINDOW = 256
 MAX_STRIPES = 64
 
 # Launch counts per kernel; callers zero them with reset_launch_counts().
-LAUNCHES = {"ground_pass": 0, "ground_pass_pose": 0, "composite": 0}
+LAUNCHES = {"ground_pass": 0, "ground_pass_pose": 0, "composite": 0, "composite_depth_sky": 0}
 
 
 def reset_launch_counts() -> None:
@@ -153,3 +156,29 @@ def composite_cuda(rows: Tensor, depth_rows: Tensor, ground: Tensor, W: int) -> 
     _raise_on(status, "composite")
     LAUNCHES["composite"] += 1
     return out
+
+
+def composite_depth_sky_cuda(
+    rows: Tensor, depth_rows: Tensor, ground: Tensor, W: int
+) -> tuple[Tensor, Tensor, Tensor]:
+    """(classes [B, H*W] int32, depth [B, H*W] float32, sky [B, H*W] bool):
+    the composite's depth-and-sky mode (see rasterizer.composite_plain
+    with return_depth_sky=True for the function)."""
+    B, N, _ = rows.shape
+    H = depth_rows.shape[0]
+    _check_limit("composite_depth_sky", "the number of candidates N", N, MAX_CANDIDATES)
+    _check("rows", rows, torch.float32, (B, N, 8))
+    _check("depth_rows", depth_rows, torch.float32, (H,))
+    _check("ground", ground, torch.int32, (B, H * W))
+    out = torch.empty_like(ground)
+    depth = torch.empty((B, H * W), dtype=torch.float32, device=ground.device)
+    sky = torch.empty((B, H * W), dtype=torch.bool, device=ground.device)  # one byte, 0 or 1
+    lib = load_library()
+    status = lib.launch_composite_depth_sky(
+        rows.data_ptr(), depth_rows.data_ptr(), ground.data_ptr(), B, N, H, W,
+        out.data_ptr(), depth.data_ptr(), sky.data_ptr(),
+        torch.cuda.current_stream(rows.device).cuda_stream,
+    )
+    _raise_on(status, "composite_depth_sky")
+    LAUNCHES["composite_depth_sky"] += 1
+    return out, depth, sky

@@ -8,8 +8,9 @@ solve-aware freeze and the non-finite-loss rollback, as the JAX Trainer
 does. Counters live inside the checkpointed TrainState, so a resume
 continues the numbering.
 
-Ported: `obs` "vector" and "latent", `env_kind` "lap", "route" and
-"lap_bank", on one device. The rest raises NotImplementedError naming the
+Ported: `obs` "vector" (and `obs_fn` "vector_npc") and "latent" (seg or
+rgb `vae_source`), `env_kind` "lap", "route" and "lap_bank", NPC traffic on
+the lap env, on one device. The rest raises NotImplementedError naming the
 ROADMAP queue-A item that brings it. `Trainer(..., device=)` is the one
 addition: the port runs on the card unless the caller asks for the CPU.
 """
@@ -27,7 +28,7 @@ import torch
 
 from carla_ppo_tpu_torch.envs import lap_bank_env, route_env, route_planner
 from carla_ppo_tpu_torch.envs import track as track_mod
-from carla_ppo_tpu_torch.envs.observations import vector_obs_dim
+from carla_ppo_tpu_torch.envs.observations import obs_dim_for
 from carla_ppo_tpu_torch.envs.types import EnvParams
 from carla_ppo_tpu_torch.models.policy import ActorCritic
 from carla_ppo_tpu_torch.training import ppo
@@ -58,7 +59,7 @@ class TrainerSettings:
     num_devices: int = 1  # data parallel (ROADMAP A10): only 1 here
     num_tracks: int = 16  # lap_bank circuits
     rich_scene: bool = True  # roadside props (cameras only)
-    num_npcs: int = 0  # traffic (ROADMAP A9): only 0 here
+    num_npcs: int = 0
     npc_min_speed: float = 4.0
     npc_max_speed: float = 7.0
     fps: int = 30
@@ -70,7 +71,7 @@ class TrainerSettings:
     vae_model: Optional[str] = None
     vae_model_type: Optional[str] = None
     vae_z_dim: Optional[int] = None
-    vae_source: str = "seg"  # "rgb" is ROADMAP A6
+    vae_source: str = "seg"
     vae_scale: float = 1e-4  # pixels only
     deprop_aux: bool = False  # pixels only
     warm_start_vae: Optional[str] = None  # pixels only
@@ -90,7 +91,7 @@ class TrainerSettings:
     blocked_scale: Optional[float] = None
     block_range: Optional[float] = None
     low_speed_threshold: Optional[float] = None  # km/h
-    # NPC lane keeping; without NPCs (the only ported case) no effect.
+    # NPC lane keeping (EnvParams.npc_keep_lat / npc_keep_gain).
     npc_keep_lat: float = 0.0
     npc_keep_gain: float = 0.0
     stall_timeout_s: float = 0.0  # 0 = no watchdog
@@ -105,9 +106,6 @@ def check_ported(settings: TrainerSettings, config: ppo.PPOConfig) -> None:
         (settings.obs == "pixels", "obs 'pixels' (the pixel policy with a joint VAE)", "A8"),
         (settings.num_devices != 1, f"num_devices={settings.num_devices} (multi-GPU)", "A10"),
         (settings.record_eval, "record_eval (eval videos)", "A12"),
-        (settings.num_npcs > 0, f"num_npcs={settings.num_npcs} (NPC traffic)", "A9"),
-        (config.obs_fn != "vector", f"obs_fn {config.obs_fn!r} (NPC features)", "A9"),
-        (settings.vae_source != "seg", f"vae_source {settings.vae_source!r} (the RGB camera)", "A6"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -164,6 +162,8 @@ class Trainer:
             npc_max_speed=settings.npc_max_speed,
             terminate_on_collision=settings.num_npcs > 0,
             render_npc_billboards=settings.num_npcs > 0,
+            npc_keep_lat=settings.npc_keep_lat,
+            npc_keep_gain=settings.npc_keep_gain,
             junction_spawn_prob=settings.junction_spawn_prob,
         )
         rp_overrides = {
@@ -251,7 +251,7 @@ class Trainer:
             self.latent_obs = ppo.LatentObs(vae_model=vae, source=settings.vae_source)
             obs_dim = self.latent_obs.obs_dim
         else:
-            obs_dim = vector_obs_dim()
+            obs_dim = obs_dim_for(config.obs_fn)
 
         # "mixed": the update model computes in float32 and the rollout acts
         # with a bfloat16-trunk twin of it (train(): rollout_model()).

@@ -8,6 +8,10 @@ neither JAX nor the JAX package:
 - Conv kernel HWIO                  -> torch Conv2d weight OIHW;
 - the ConvVAE latent heads: the JAX encoder flattens NHWC, this port's
   encoder flattens NCHW, so the heads' input rows are permuted;
+- ConvTranspose kernel (kh, kw, in, out) -> torch ConvTranspose2d weight
+  (in, out, kh, kw) flipped on both spatial axes: flax applies the kernel
+  unflipped (transpose_kernel=False), torch's transposed convolution (the
+  gradient of a convolution) flips it;
 - a whole PPO train state (`train_state_tree`): the ActorCritic params, the
   optax Adam moments `mu` / `nu` (flax param trees, converted exactly like
   the params, so every moment sits beside its parameter) and `count`, the
@@ -115,6 +119,51 @@ def vae_encoder_state_dict(
     for jax_name, name in (("mean", "mean_head"), ("logstd_square", "logstd_head")):
         k = nhwc_rows_to_nchw(p[jax_name]["kernel"], encoded_shape)
         out[f"{name}.weight"], out[f"{name}.bias"] = dense(k, p[jax_name]["bias"])
+    return out
+
+
+def conv_transpose_to_torch(kernel) -> torch.Tensor:
+    """flax ConvTranspose kernel (kh, kw, in, out) -> torch ConvTranspose2d
+    weight (in, out, kh, kw), spatially flipped."""
+    k = np.asarray(kernel)[::-1, ::-1]
+    return _t(np.transpose(k, (2, 3, 0, 1)))
+
+
+def vae_state_dict(
+    tree: Mapping[str, Any], source_shape: Tuple[int, int, int], model_type: str = "cnn",
+) -> Dict[str, torch.Tensor]:
+    """flax VAE params -> models.vae.VAE state_dict: encoder, latent heads
+    and decoder, for the conv or the MLP VAE."""
+    p = _params(tree)
+    if model_type == "cnn":
+        from carla_ppo_tpu_torch.models.vae import encoded_conv_shape
+
+        out = vae_encoder_state_dict(p, encoded_conv_shape(source_shape))
+    else:
+        out = {}
+        for i in range(len(p["encoder"])):
+            layer = p["encoder"][f"dense_{i}"]
+            out[f"encoder.dense.{i}.weight"], out[f"encoder.dense.{i}.bias"] = dense(
+                layer["kernel"], layer["bias"])
+        for jax_name, name in (("mean", "mean_head"), ("logstd_square", "logstd_head")):
+            out[f"{name}.weight"], out[f"{name}.bias"] = dense(
+                p[jax_name]["kernel"], p[jax_name]["bias"])
+    dec = p["decoder"]
+    if model_type == "cnn":
+        out["decoder.dense.weight"], out["decoder.dense.bias"] = dense(
+            dec["dense1"]["kernel"], dec["dense1"]["bias"])
+        for i in range(4):
+            layer = dec[f"deconv{i + 1}"]
+            out[f"decoder.deconvs.{i}.weight"] = conv_transpose_to_torch(layer["kernel"])
+            out[f"decoder.deconvs.{i}.bias"] = _t(layer["bias"])
+    else:
+        n_hidden = len(dec) - 1
+        for i in range(n_hidden):
+            layer = dec[f"dense_{i}"]
+            out[f"decoder.dense.{i}.weight"], out[f"decoder.dense.{i}.bias"] = dense(
+                layer["kernel"], layer["bias"])
+        out["decoder.dense_out.weight"], out["decoder.dense_out.bias"] = dense(
+            dec["dense_out"]["kernel"], dec["dense_out"]["bias"])
     return out
 
 

@@ -152,4 +152,6 @@ def load_library() -> ctypes.CDLL:
     lib.launch_ground_pass_pose.restype = _I
     lib.launch_composite.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P]
     lib.launch_composite.restype = _I
+    lib.launch_composite_depth_sky.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
+    lib.launch_composite_depth_sky.restype = _I
     return lib

@@ -16,7 +16,10 @@ Phases, one line each; any failure raises and exits non-zero:
      exact int32 equality; then on a batch of N=128 candidates (all four
      32-bit mask words: the driven batch's 72 candidate rows and 56 of the
      wrap batch's), which must also change pixels that the first 96
-     candidates alone leave as they are;
+     candidates alone leave as they are; its depth-and-sky mode (the RGB
+     camera's, launch_composite_depth_sky) vs composite_plain(...,
+     return_depth_sky=True) on the same three batches, at B=1 and on the
+     N=128 batch: 0 mismatched pixels in classes, depth bits and sky;
   5. the ground-pass kernel on the other contracts of the TPU package's
      ground kernels, 0 mismatched pixels against the plain version: the
      84x84 pixel-policy camera and the 180x320 / -15 deg chase camera
@@ -41,6 +44,12 @@ Phases, one line each; any failure raises and exits non-zero:
   8. where a lap rollout step's time goes: the real functions that
      `ppo.rollout` calls are bracketed by CUDA events for 20 steps, then
      torch.profiler reads kernel time by name over 10 more;
+     [throughput_rgb] then the lap path again with RGB latents
+     (LatentObs(source="rgb")) through the converted rgb->de-prop VAE
+     (3-channel source, models/torch/vae_models/seg_bce_..._deprop_data) at
+     the same width: 2 train_iterations + evaluate, the ground pass and the
+     depth-and-sky composite must launch, and the same stage split with the
+     shade (`_shade_rgb`) and the 3-channel encode;
   9. the route path: PPOConfig(env_kind="route", normalize_rewards=True)
      on a bank of 64 random routes (capacity 1024, props), 2
      train_iterations and a 300-step greedy evaluate; the lap-bank path:
@@ -73,7 +82,25 @@ Phases, one line each; any failure raises and exits non-zero:
      reference_eval_<cap>.json, made on a CPU by
      scripts/export_torch_checkpoints.py --reference_eval <cap>). Missing
      converted files fail the phase;
- 12. the kernels line (JSON, one row per TPU kernel), then the last line
+ 12. [rgb_pretrained] the same for the converted RGB latent agent
+     (models/torch/rgb_latent, step 90) with --vae_source rgb through the
+     rgb->de-prop VAE, 8 envs, 6000 steps, within 5% of its JAX reference
+     (models/torch/rgb_latent/reference_eval_6000.json), no failed episode;
+ 13. [traffic] cli.run_eval of the converted traffic agent
+     (models/torch/traffic_agent, step 560) with its training traffic (4
+     lane-keeping NPCs, vector_npc, its reward speeds and low-speed floor),
+     16 envs, 3000 steps: overtakes > 0 and the distance within 10% of its
+     JAX reference (the NPC spawns come from each package's own generator);
+     collisions are printed;
+ 14. [vae_pipeline] cli.collect_data at its defaults (NPCs on) but 300
+     images into a temporary directory, cli.train_vae --epochs 2 (rgb
+     source, seg target) on them, load_vae of the result and one encode of
+     a 1024-frame RGB batch on the card: the collect rate, seconds per
+     epoch and finite val losses, and the ground pass and the
+     depth-and-sky composite launched (a saved pair is one RGB render
+     whose classes are its seg frame);
+ 15. the kernels line (JSON, one row per TPU kernel, and a row for the
+     composite's depth-and-sky mode), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Float32 matmuls and convolutions run in full float32 (TF32 off for both).
@@ -116,7 +143,19 @@ CSRC = "carla_ppo_tpu_torch/csrc"
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEPROP_VAE = os.path.join(REPO, "models", "torch", "vae_models",
                           "from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data")
+RGB_DEPROP_VAE = os.path.join(REPO, "models", "torch", "vae_models",
+                              "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data")
 LATENT_AGENT = os.path.join(REPO, "models", "torch", "latent_agent")
+RGB_AGENT = os.path.join(REPO, "models", "torch", "rgb_latent")
+TRAFFIC_AGENT = os.path.join(REPO, "models", "torch", "traffic_agent")
+TRAFFIC_STEPS = 3000
+TRAFFIC_ENVS = 16
+# The traffic agent's eval flags: its training traffic and reward speeds.
+TRAFFIC_ARGV = ["--num_npcs", "4", "--obs_fn", "vector_npc", "--npc_keep_lat", "-0.5",
+                "--npc_keep_gain", "1.0", "--reward_min_speed", "30", "--reward_target_speed", "38",
+                "--reward_max_speed", "55", "--low_speed_threshold", "29"]
+VAE_IMAGES = 300
+VAE_EPOCHS = 2
 # The [pretrained] drive's cap, ~0.7 of a lap (~1-2 min here). The full 3
 # laps take ~26,350 steps (3.5-7 min): scripts/export_torch_checkpoints.py
 # --reference_eval 30000 and cli.run_eval --eval_max_steps 30000 compare
@@ -228,11 +267,29 @@ def composite_ops(torch, rows, H: int, W: int) -> tuple[int, int]:
     return B * N * (W + H), int((n_cols * n_rows).sum())
 
 
+def depth_sky_check(torch, label, got, want, errs):
+    """Log and count a depth-and-sky composite's mismatches against its
+    plain version (classes, depth bit patterns, sky); raises on any."""
+    bad = [int((got[0] != want[0]).sum()),
+           int((got[1].view(torch.int32) != want[1].view(torch.int32)).sum()),
+           int((got[2] != want[2]).sum())]
+    both = torch.isfinite(got[1]) & torch.isfinite(want[1])
+    d_err = float((got[1] - want[1])[both].abs().max()) if bool(both.any()) else 0.0
+    errs["composite_depth_sky"] = max(errs["composite_depth_sky"], int((got[0] - want[0]).abs().max()),
+                                      d_err, int(bad[2] > 0))
+    log(f"[composite_depth_sky parity] {label}: B={got[0].shape[0]} mismatched pixels: classes "
+        f"{bad[0]}, depth bits {bad[1]}, sky {bad[2]}; billboard depths {int(both.sum())}, sky pixels "
+        f"{int(got[2].sum())} of {got[0].numel()}")
+    if any(bad):
+        raise AssertionError(f"the depth-and-sky composite disagrees with its plain version on {label}")
+
+
 def drive_train(torch, ppo, RC, log_name, params, config, latent, model, gen, iterations,
-                eval_gen, smi):
+                eval_gen, smi, kernels=("ground_pass", "composite")):
     """Train `iterations` PPO iterations and run a greedy evaluate on one
-    path with every launch count set to 0 first; returns (train state,
-    envs, eval metrics, launch counts, seconds training, seconds eval)."""
+    path with every launch count set to 0 first; each of `kernels` must
+    have launched. Returns (train state, envs, eval metrics, launch
+    counts)."""
     train_state = ppo.create_train_state(model, config, gen)
     envs = ppo.init_env_batch(params, config.num_envs, train_state.generator, config.env_kind)
     RC.reset_launch_counts()
@@ -268,7 +325,7 @@ def drive_train(torch, ppo, RC, log_name, params, config, latent, model, gen, it
     if not all(math.isfinite(v) for v in ev_vals.values()):
         raise AssertionError(f"non-finite eval metrics on the {log_name} path")
     log(f"[launches] {log_name} path: {launches}")
-    if launches["ground_pass"] <= 0 or launches["composite"] <= 0:
+    if any(launches[k] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of the {log_name} path never launched: {launches}")
     steps = iterations * config.horizon * config.num_envs
     log(f"[throughput{tag}] {smi}: train {steps} env-steps in {train_s:.3f} s = "
@@ -374,7 +431,20 @@ def main() -> int:
         log(f"[composite parity] {name}: B={BATCH} mismatched pixels {c_bad}, billboard pixels {drawn}")
         if c_bad or not drawn:
             raise AssertionError(f"composite kernel check failed on {name}")
+        d_got = RC.composite_depth_sky_cuda(rows, depth_rows, got, cam.width)
+        d_plain = R.composite_plain(rows, depth_rows, got, cam.width, return_depth_sky=True)
+        torch.cuda.synchronize()
+        depth_sky_check(torch, name, d_got, d_plain, errs)
+        if not torch.equal(d_got[0], c_got):
+            raise AssertionError(f"the two composite modes' classes differ on {name}")
         timing_inputs[name] = (win_cols, payload, rows, got, (starts, table, pose))
+    # B=1, the collector's batch.
+    one = _first(driven, 1)
+    o_win, o_pay = R.prep_windows(one, params, cam)
+    o_ground = RC.ground_pass_cuda(o_win, o_pay, slab, stripes, sky_px, hw, consts)
+    o_rows = R.prep_candidates(one, params, cam)
+    depth_sky_check(torch, "B=1", RC.composite_depth_sky_cuda(o_rows, depth_rows, o_ground, cam.width),
+                    R.composite_plain(o_rows, depth_rows, o_ground, cam.width, return_depth_sky=True), errs)
     # N=128: all four mask words; the fourth must decide some pixels.
     _, _, rows_d, ground_d, _ = timing_inputs["driven"]
     rows128 = torch.cat([rows_d, timing_inputs["wrap"][2][:, :56]], 1).contiguous()
@@ -388,6 +458,10 @@ def main() -> int:
         f"by candidates 96-127 {decided}, billboard pixels {int((c_got != ground_d).sum())}")
     if c_bad or not decided:
         raise AssertionError("composite kernel check failed on the N=128 batch")
+    depth_sky_check(torch, "N=128 candidates",
+                    RC.composite_depth_sky_cuda(rows128, depth_rows, ground_d, cam.width),
+                    R.composite_plain(rows128, depth_rows, ground_d, cam.width, return_depth_sky=True),
+                    errs)
     del rows128, c_plain, c_got, c_96
 
     # 5. The ground-pass kernel on the other contracts: unaligned cameras,
@@ -439,10 +513,16 @@ def main() -> int:
     g_plain_ms = cuda_ms(torch, lambda: R.ground_pass_plain(win_cols, payload, slab, stripes, sky_px, hw, consts), 3, 1)
     c_ms = cuda_ms(torch, lambda: RC.composite_cuda(rows, depth_rows, ground, cam.width), 50)
     c_plain_ms = cuda_ms(torch, lambda: R.composite_plain(rows, depth_rows, ground, cam.width), 3, 1)
+    d_ms = cuda_ms(torch, lambda: RC.composite_depth_sky_cuda(rows, depth_rows, ground, cam.width), 50)
+    d_plain_ms = cuda_ms(torch, lambda: R.composite_plain(rows, depth_rows, ground, cam.width,
+                                                          return_depth_sky=True), 3, 1)
     p_ms = cuda_ms(torch, lambda: RC.ground_pass_pose_cuda(*pose_in, cam.window, slab, stripes, sky_px, hw, consts), 50)
     p_plain_ms = cuda_ms(torch, lambda: R.ground_pass_pose_plain(*pose_in, cam.window, slab, stripes, sky_px, hw, consts), 3, 1)
     g_bytes = 4 * (win_cols.numel() + payload.numel() + slab.numel() + stripes.numel() + BATCH * hw)
     c_bytes = 4 * (rows.numel() + depth_rows.numel() + 2 * BATCH * hw)
+    # depth-and-sky: reads the ground (4 B a pixel), writes classes, depth
+    # and sky (4 + 4 + 1 B)
+    d_bytes = 4 * (rows.numel() + depth_rows.numel()) + 13 * BATCH * hw
     # Two float operations per coverage predicate (sub and compare, or two
     # compares), one int32 min per valid candidate and covered pixel.
     c_preds, c_mins = composite_ops(torch, rows, cam.height, cam.width)
@@ -453,17 +533,21 @@ def main() -> int:
     # ~24 float operations per window row to rotate it into the camera frame.
     p_ops = ground_ops(torch, BATCH, slab, stripes, 24 * cam.window)
     times = {"ground_pass": (g_ms, g_plain_ms), "composite": (c_ms, c_plain_ms),
-             "ground_pass_pose": (p_ms, p_plain_ms)}
+             "ground_pass_pose": (p_ms, p_plain_ms), "composite_depth_sky": (d_ms, d_plain_ms)}
     bounds = {}
     for name, nbytes, work in (
             ("ground_pass", g_bytes, [(ground_ops(torch, BATCH, slab, stripes), FP32_OPS_PER_S)]),
             ("composite", c_bytes, [(2 * c_preds, FP32_OPS_PER_S), (c_mins, INT32_OPS_PER_S)]),
+            ("composite_depth_sky", d_bytes, [(2 * c_preds, FP32_OPS_PER_S), (c_mins, INT32_OPS_PER_S)]),
             ("ground_pass_pose", p_bytes, [(p_ops, FP32_OPS_PER_S)])):
         bounds[name] = bound(nbytes, work)
         log(f"[bound] {name}: {bounds[name][2]}")
     log(f"[timing] {smi}: ground_pass {g_ms:.6f} ms (plain {g_plain_ms:.3f} ms), "
         f"composite {c_ms:.6f} ms (plain {c_plain_ms:.3f} ms) at B={BATCH}")
     log(f"[timing] {smi}: ground_pass_pose {p_ms:.6f} ms (plain {p_plain_ms:.3f} ms) at B={BATCH}")
+    log(f"[timing] {smi}: composite_depth_sky {d_ms:.6f} ms (plain {d_plain_ms:.3f} ms; bound "
+        f"{bounds['composite_depth_sky'][0]:.6f} ms, share {bounds['composite_depth_sky'][0] / d_ms:.3f}) "
+        f"beside the class-only composite {c_ms:.6f} ms at B={BATCH}")
     for key, (wc, pl, c_slab, c_stripes, c_sky, c_hw) in contract_inputs.items():
         B = wc.shape[0]
         k_ms = cuda_ms(torch, lambda: RC.ground_pass_cuda(wc, pl, c_slab, c_stripes, c_sky, c_hw, consts), 50)
@@ -487,50 +571,31 @@ def main() -> int:
         make_generator(3, dev), smi)
 
     # 8. Where a lap rollout step's time goes, on the real functions of ppo.rollout.
-    gen = train_state.generator
     stages = [(model, "sample", "policy"), (lap_env, "autoreset_step", "env"),
               (R, "prep_windows", "prep_windows"), (R, "ground_pass", "ground_pass"),
               (R, "prep_candidates", "prep_candidates"), (R, "composite", "composite"),
               (R, "seg_to_obs", "seg_to_obs"), (vae, "encode", "vae_encode")]
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with timed_stages(torch, stages) as spans:
-        torch.cuda.synchronize()
-        h0 = time.perf_counter()
-        start.record()
-        envs, _, _, _ = ppo.rollout(model, envs, params, gen, STAGE_STEPS, config, latent_obs=latent)
-        end.record()
-        torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end) / STAGE_STEPS
-    log(f"[stages] {smi}: ppo.rollout, {config.num_envs} envs, {STAGE_STEPS} steps: "
-        f"{step_ms:.3f} ms per step between CUDA events, "
-        f"{(time.perf_counter() - h0) * 1e3 / STAGE_STEPS:.3f} ms host; per stage, ms per step "
-        "between the events around each call (device time plus any wait for the host) "
-        "and host ms to enqueue it:")
-    staged = 0.0
-    for _, _, name in stages:
-        d_ms, h_ms = span_ms(spans[name])
-        staged += d_ms
-        log(f"[stages]   {name:16s} {len(spans[name]):3d} calls  {d_ms / STAGE_STEPS:8.3f} ms  "
-            f"host {h_ms / STAGE_STEPS:8.3f} ms")
-    log(f"[stages]   {'rest of rollout':16s}            {step_ms - staged / STAGE_STEPS:8.3f} ms")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        envs, _, _, _ = ppo.rollout(model, envs, params, gen, PROFILE_STEPS, config,
-                                    latent_obs=latent)
-        torch.cuda.synchronize()
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name][0] += e.device_time_total / 1e3 / PROFILE_STEPS
-            by_name[e.name][1] += 1 / PROFILE_STEPS
-    busy_ms = sum(ms for ms, _ in by_name.values())
-    log(f"[stages] torch.profiler over {PROFILE_STEPS} more steps: {busy_ms:.3f} ms of device "
-        f"kernels per step in {sum(n for _, n in by_name.values()):.1f} kernels; over the "
-        f"{step_ms:.3f} ms step above (a run without the profiler) that is "
-        f"{100 * busy_ms / step_ms:.1f}% device busy")
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        log(f"[stages]   {ms:8.4f} ms/step  {n:5.1f}/step  {name[:90]}")
+    stage_split(torch, ppo, smi, "", model, envs, params, config, latent, train_state.generator, stages)
     del envs, train_state
+
+    # [throughput_rgb] The lap path with RGB latents through the converted
+    # rgb->de-prop VAE (3-channel source), the same width and split.
+    from carla_ppo_tpu_torch.models import vae_common
+
+    rgb_vae = vae_common.load_vae(RGB_DEPROP_VAE, device=dev)
+    rgb_latent = ppo.LatentObs(vae_model=rgb_vae, source="rgb")
+    rgb_model = ActorCritic(rgb_latent.obs_dim, generator=make_generator(10, "cpu")).to(dev)
+    rgb_state, rgb_envs, _, rgb_launches = drive_train(
+        torch, ppo, RC, "rgb", params, config, rgb_latent, rgb_model, make_generator(11, dev), 2,
+        make_generator(12, dev), smi, kernels=("ground_pass", "composite_depth_sky"))
+    rgb_stages = [(rgb_model, "sample", "policy"), (lap_env, "autoreset_step", "env"),
+                  (R, "prep_windows", "prep_windows"), (R, "ground_pass", "ground_pass"),
+                  (R, "prep_candidates", "prep_candidates"),
+                  (R, "composite_depth_sky", "composite_depth_sky"), (R, "_shade_rgb", "shade"),
+                  (rgb_vae, "encode", "vae_encode")]
+    stage_split(torch, ppo, smi, " rgb", rgb_model, rgb_envs, params, config, rgb_latent,
+                rgb_state.generator, rgb_stages)
+    del rgb_envs, rgb_state
 
     # 9. The route path, the lap-bank path and the camera entry points.
     route_config = ppo.PPOConfig(env_kind="route", normalize_rewards=True)
@@ -581,11 +646,22 @@ def main() -> int:
                            lambda s: R.render_batch(s, params, cam, style), "ground_pass"),
     }
 
-    # 10. The training entry point; 11. the shipped latent agent.
+    # 10. The training entry point; 11.-13. the shipped latent, RGB and
+    # traffic agents; 14. the VAE pipeline.
     trainer_launches = trainer_phase(torch, ppo, RC, smi)
-    pretrained_launches = pretrained_phase(RC, smi)
+    pretrained_launches = eval_phase(RC, smi, "pretrained", LATENT_AGENT, ["--vae_model", DEPROP_VAE],
+                                     PRETRAINED_ENVS, PRETRAINED_STEPS, 0.05,
+                                     ("ground_pass", "composite"))
+    rgb_eval_launches = eval_phase(RC, smi, "rgb_pretrained", RGB_AGENT,
+                                   ["--vae_model", RGB_DEPROP_VAE, "--vae_source", "rgb"],
+                                   PRETRAINED_ENVS, PRETRAINED_STEPS, 0.05,
+                                   ("ground_pass", "composite_depth_sky"))
+    traffic_launches = eval_phase(RC, smi, "traffic", TRAFFIC_AGENT, TRAFFIC_ARGV, TRAFFIC_ENVS,
+                                  TRAFFIC_STEPS, 0.10, (), require_finished_or_running=False,
+                                  require_overtakes=True)
+    vae_launches = vae_pipeline_phase(torch, RC, smi, driven, params)
 
-    # 12. Results: one row per TPU kernel.
+    # 15. Results: one row per TPU kernel.
     def row(name, source, replaces, launches, key, err):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}",
                 "replaces": f"{PALLAS}:{replaces}", "launches": launches, "max_abs_err": err,
@@ -608,10 +684,17 @@ def main() -> int:
             "v3c_odd_batch", errs["v3c_odd_batch"]),
         row("ground_pass_pose", "ground_pass_pose.cu", 955, entry_launches["ground_pass_pose"],
             "ground_pass_pose", errs["ground_pass_pose"]),
+        # The composite's depth-and-sky mode: on the TPU's RGB path the XLA
+        # _composite_billboards_flat(..., return_depth_sky=True) computes it
+        # (the Pallas composite it extends is class-only).
+        row("composite (depth-and-sky mode)", "composite.cu", 1290,
+            rgb_launches["composite_depth_sky"], "composite_depth_sky", errs["composite_depth_sky"]),
     ]
     log(f"[launches] lap_bank path: ground_pass {bank_launches['ground_pass']}, "
         f"composite {bank_launches['composite']}")
-    log(f"[launches] trainer path: {trainer_launches}; pretrained path: {pretrained_launches}")
+    log(f"[launches] trainer path: {trainer_launches}; pretrained path: {pretrained_launches}; "
+        f"rgb_pretrained path: {rgb_eval_launches}; traffic path: {traffic_launches}; "
+        f"vae_pipeline path: {vae_launches}")
     log(json.dumps({"kernels": kernels}))
     over = [(k["name"], k["bound_share"]) for k in kernels if k["bound_share"] > 1.05]
     if over:
@@ -619,6 +702,52 @@ def main() -> int:
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def stage_split(torch, ppo, smi, tag, model, envs, params, config, latent, gen, stages):
+    """Where a rollout step's time goes: each (owner, attribute, stage) of
+    `stages` (the real functions ppo.rollout calls) bracketed by CUDA events
+    for STAGE_STEPS steps, then torch.profiler's kernel time by name over
+    PROFILE_STEPS more. Returns the envs after both."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with timed_stages(torch, stages) as spans:
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        start.record()
+        envs, _, _, _ = ppo.rollout(model, envs, params, gen, STAGE_STEPS, config, latent_obs=latent)
+        end.record()
+        torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / STAGE_STEPS
+    log(f"[stages{tag}] {smi}: ppo.rollout, {config.num_envs} envs, {STAGE_STEPS} steps: "
+        f"{step_ms:.3f} ms per step between CUDA events, "
+        f"{(time.perf_counter() - h0) * 1e3 / STAGE_STEPS:.3f} ms host; per stage, ms per step "
+        "between the events around each call (device time plus any wait for the host) "
+        "and host ms to enqueue it:")
+    staged = 0.0
+    for _, _, name in stages:
+        d_ms, h_ms = span_ms(spans[name])
+        staged += d_ms
+        log(f"[stages{tag}]   {name:16s} {len(spans[name]):3d} calls  {d_ms / STAGE_STEPS:8.3f} ms  "
+            f"host {h_ms / STAGE_STEPS:8.3f} ms")
+    log(f"[stages{tag}]   {'rest of rollout':16s}            {step_ms - staged / STAGE_STEPS:8.3f} ms")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        envs, _, _, _ = ppo.rollout(model, envs, params, gen, PROFILE_STEPS, config,
+                                    latent_obs=latent)
+        torch.cuda.synchronize()
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += e.device_time_total / 1e3 / PROFILE_STEPS
+            by_name[e.name][1] += 1 / PROFILE_STEPS
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    log(f"[stages{tag}] torch.profiler over {PROFILE_STEPS} more steps: {busy_ms:.3f} ms of device "
+        f"kernels per step in {sum(n for _, n in by_name.values()):.1f} kernels; over the "
+        f"{step_ms:.3f} ms step above (a run without the profiler) that is "
+        f"{100 * busy_ms / step_ms:.1f}% device busy")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"[stages{tag}]   {ms:8.4f} ms/step  {n:5.1f}/step  {name[:90]}")
+    return envs
 
 
 @contextlib.contextmanager
@@ -718,42 +847,114 @@ def trainer_phase(torch, ppo, RC, smi):
     return launches
 
 
-def pretrained_phase(RC, smi):
-    """[pretrained]: cli.run_eval of the converted shipped latent agent,
-    held against the JAX package's greedy eval at the same cap; returns the
-    camera kernels' launch counts."""
+def eval_phase(RC, smi, tag, agent_dir, argv, envs, steps, tolerance, kernels,
+               require_finished_or_running=True, require_overtakes=False):
+    """cli.run_eval --no_video of a converted shipped agent (copied into a
+    temporary models/torch/), capped at `steps` with `envs` envs, held
+    against the JAX package's greedy eval of the same orbax checkpoint at
+    the same cap (`<agent_dir>/reference_eval_<steps>.json`): the mean
+    distance within `tolerance`, no failed episode where required,
+    overtakes where required, and each of `kernels` launched. Returns the
+    launch counts of the run."""
     from carla_ppo_tpu_torch.cli import run_eval as eval_cli
     from carla_ppo_tpu_torch.envs.types import TerminationReason
 
-    with open(os.path.join(LATENT_AGENT, f"reference_eval_{PRETRAINED_STEPS}.json")) as f:
+    name = os.path.basename(agent_dir)
+    with open(os.path.join(agent_dir, f"reference_eval_{steps}.json")) as f:
         ref = json.load(f)
-    if ref["max_steps"] != PRETRAINED_STEPS or ref["num_envs"] != PRETRAINED_ENVS:
+    if ref["max_steps"] != steps or ref["num_envs"] != envs:
         raise AssertionError(f"the reference eval is of another drive: {ref['command']}")
     with in_temp_dir() as tmp:
-        shutil.copytree(LATENT_AGENT, os.path.join(tmp, "models", "torch", "latent_agent"))
+        shutil.copytree(agent_dir, os.path.join(tmp, "models", "torch", name))
         RC.reset_launch_counts()
         h0 = time.perf_counter()
-        m = eval_cli.main(["--model_name", "torch/latent_agent", "--vae_model", DEPROP_VAE,
-                           "--num_envs", str(PRETRAINED_ENVS), "--no_video",
-                           "--eval_max_steps", str(PRETRAINED_STEPS)])
+        m = eval_cli.main(["--model_name", f"torch/{name}", "--num_envs", str(envs), "--no_video",
+                           "--eval_max_steps", str(steps)] + argv)
         seconds = time.perf_counter() - h0
         launches = dict(RC.LAUNCHES)
     want = ref["metrics"]["eval/distance_traveled"]
     got = m["eval/distance_traveled"]
     reasons = {TerminationReason(i).name: m[f"eval/termination_reasons/{i}"]
                for i in range(len(TerminationReason)) if m[f"eval/termination_reasons/{i}"]}
-    log(f"[pretrained] {smi}: run_eval torch/latent_agent, {PRETRAINED_ENVS} envs, "
-        f"{PRETRAINED_STEPS} steps cap, {seconds:.2f} s: laps {m['eval/laps_completed']:.6g}, "
-        f"distance {got:.6g} m (JAX CPU reference {want:.6g} m, {100 * (got / want - 1):+.3f}%), "
-        f"average centre deviation {m['eval/average_center_lane_deviation']:.6g} m, "
-        f"speed {m['eval/average_speed']:.6g} km/h, episodes by reason {reasons}; launches {launches}")
+    want_reasons = {TerminationReason(i).name: ref["metrics"][f"eval/termination_reasons/{i}"]
+                    for i in range(len(TerminationReason))
+                    if ref["metrics"][f"eval/termination_reasons/{i}"]}
+    log(f"[{tag}] {smi}: run_eval torch/{name}, {envs} envs, {steps} steps cap, {seconds:.2f} s: "
+        f"laps {m['eval/laps_completed']:.6g}, distance {got:.6g} m (JAX CPU reference {want:.6g} m, "
+        f"{100 * (got / want - 1):+.3f}%), average centre deviation "
+        f"{m['eval/average_center_lane_deviation']:.6g} m, speed {m['eval/average_speed']:.6g} km/h, "
+        f"overtakes {m['eval/overtakes']:.6g} (reference {ref['metrics']['eval/overtakes']:.6g}), "
+        f"episodes by reason {reasons} (reference {want_reasons}), collisions "
+        f"{reasons.get('COLLISION', 0.0):g}; launches {launches}")
     failed = {k: v for k, v in reasons.items() if k not in ("RUNNING", "LAPS_DONE")}
-    if failed:
-        raise AssertionError(f"the shipped latent agent's episodes failed: {failed}")
-    if abs(got / want - 1.0) > 0.05:
-        raise AssertionError(f"distance {got} m is not within 5% of the JAX reference {want} m")
-    if launches["ground_pass"] <= 0 or launches["composite"] <= 0:
+    if require_finished_or_running and failed:
+        raise AssertionError(f"the shipped agent {name}'s episodes failed: {failed}")
+    if abs(got / want - 1.0) > tolerance:
+        raise AssertionError(f"distance {got} m is not within {tolerance:.0%} of the JAX reference {want} m")
+    if require_overtakes and not m["eval/overtakes"] > 0:
+        raise AssertionError(f"the traffic agent made no overtake: {m['eval/overtakes']}")
+    if any(launches[k] <= 0 for k in kernels):
         raise AssertionError(f"a camera kernel never launched under cli.run_eval: {launches}")
+    return launches
+
+
+def vae_pipeline_phase(torch, RC, smi, states, params):
+    """[vae_pipeline]: cli.collect_data (defaults, VAE_IMAGES images) ->
+    cli.train_vae --epochs VAE_EPOCHS -> load_vae -> one encode of the RGB
+    frames of `states` (1024 envs). Returns the camera kernels' launch
+    counts over the collect and the encode."""
+    from carla_ppo_tpu_torch.cli import collect_data, train_vae
+    from carla_ppo_tpu_torch.models import vae_common
+    from carla_ppo_tpu_torch.ops import rasterizer as R
+    from carla_ppo_tpu_torch.training import vae_trainer
+
+    epochs = []
+    real_run_epoch = vae_trainer.run_epoch
+
+    def timed_epoch(*args, **kwargs):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        out = real_run_epoch(*args, **kwargs)
+        torch.cuda.synchronize()
+        epochs.append((kwargs.get("train", True), time.perf_counter() - h0))
+        return out
+
+    with in_temp_dir():
+        RC.reset_launch_counts()
+        h0 = time.perf_counter()
+        n = collect_data.main(["--output_dir", "data", "--num_images", str(VAE_IMAGES)])
+        torch.cuda.synchronize()
+        collect_s = time.perf_counter() - h0
+        vae_trainer.run_epoch = timed_epoch
+        try:
+            h0 = time.perf_counter()
+            history = train_vae.main(["--dataset", "data", "--epochs", str(VAE_EPOCHS),
+                                      "--models_dir", "vae_models"])
+            train_s = time.perf_counter() - h0
+        finally:
+            vae_trainer.run_epoch = real_run_epoch
+        model_dir = os.path.join("vae_models", "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_data")
+        vae = vae_common.load_vae(model_dir, device="cuda")
+        frames = R.render_rgb_batch(states, params)
+        with torch.no_grad():
+            z = vae.encode(frames)
+        torch.cuda.synchronize()
+        launches = dict(RC.LAUNCHES)
+    train_epochs = [t for is_train, t in epochs if is_train]
+    log(f"[vae_pipeline] {smi}: collect_data {n} pairs in {collect_s:.2f} s = {n / collect_s:.1f} "
+        f"pairs/s ({3 * n} env steps, one env); train_vae {len(history['val_loss'])} epochs in "
+        f"{train_s:.2f} s with loading, {', '.join(f'{t:.3f}' for t in train_epochs)} s per training "
+        f"epoch; train losses {history['train_loss']}, val losses {history['val_loss']}; encode of "
+        f"{tuple(frames.shape)} RGB frames -> z {tuple(z.shape)}; launches {launches}")
+    if n != VAE_IMAGES or len(history["val_loss"]) != VAE_EPOCHS:
+        raise AssertionError(f"the VAE pipeline fell short: {n} pairs, {history}")
+    if not all(math.isfinite(v) for v in history["val_loss"] + history["train_loss"]):
+        raise AssertionError(f"non-finite VAE losses: {history}")
+    if z.shape != (states.batch_size, 64) or not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"bad latents from the trained VAE: {tuple(z.shape)}")
+    # A saved pair is one render: its seg frame is the RGB frame's classes.
+    if any(launches[k] <= 0 for k in ("ground_pass", "composite_depth_sky")):
+        raise AssertionError(f"a camera kernel never launched in the VAE pipeline: {launches}")
     return launches
 
 

@@ -2,7 +2,8 @@
 """Convert the shipped JAX (orbax) checkpoints into the PyTorch port's format.
 
     JAX_PLATFORMS=cpu python scripts/export_torch_checkpoints.py [--out models/torch]
-    JAX_PLATFORMS=cpu python scripts/export_torch_checkpoints.py --reference_eval 6000
+    JAX_PLATFORMS=cpu python scripts/export_torch_checkpoints.py --reference_eval 6000 \
+        [--agent latent_agent | rgb_latent | traffic_agent]
 
 Needs the JAX package and orbax (it reads the orbax checkpoints); the port
 reads what it writes without either. For each agent the newest step
@@ -11,15 +12,17 @@ weights, the Adam moments and count, the counters and the reward moments,
 through carla_ppo_tpu_torch.utils.convert.train_state_tree (the JAX PRNG key
 is not carried over). Each VAE's newest step becomes
 `<out>/vae_models/<the JAX directory's name>/checkpoints/<step>/state.pt`,
-encoder and latent heads only; the directory name still carries the
-configuration that vae_common.parse_model_dir reads.
+the whole model (encoder, latent heads and decoder); the directory name
+still carries the configuration that vae_common.parse_model_dir reads.
 
 `--reference_eval STEPS` instead runs the JAX package's own greedy eval
-(its Trainer.evaluate, as its cli.run_eval does) of the shipped latent agent
-with the de-prop seg VAE, 8 envs capped at STEPS steps, on the CPU, and
-writes the metrics with the command that made them to
-`<out>/latent_agent/reference_eval_<STEPS>.json`; chip_smoke.py holds the
-port's drive of the converted agent against it.
+(its Trainer.evaluate, as its cli.run_eval does) of one shipped agent
+(`--agent`, see REFERENCES: the latent agent with the de-prop seg VAE, the
+RGB latent agent with the rgb->de-prop VAE, or the traffic agent under its
+4-NPC lane-keeping traffic), capped at STEPS steps, on the CPU, and writes
+the metrics with the command that made them to
+`<out>/<agent>/reference_eval_<STEPS>.json`; chip_smoke.py holds the port's
+drive of the converted agent against it.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from carla_ppo_tpu.envs.observations import vector_obs_dim  # noqa: E402
+from carla_ppo_tpu.envs.observations import vector_npc_obs_dim, vector_obs_dim  # noqa: E402
 from carla_ppo_tpu.models import vae_common  # noqa: E402
 from carla_ppo_tpu.models.policy import ActorCritic  # noqa: E402
 from carla_ppo_tpu.training import ppo  # noqa: E402
@@ -53,10 +56,23 @@ AGENTS = (
     ("route_latent", "models/route_latent_pretrained", LATENT_OBS_DIM),
     ("lap_agent", "models/pretrained_agent", vector_obs_dim()),
     ("mixed_agent", "models/mixed_agent_pretrained", vector_obs_dim()),
+    ("rgb_latent", "models/rgb_latent_pretrained", LATENT_OBS_DIM),
+    ("traffic_agent", "models/traffic_agent_pretrained", vector_npc_obs_dim()),
 )
 DEPROP_VAE = "from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data"
-VAES = (DEPROP_VAE, "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_data")
-REFERENCE_ENVS = 8
+RGB_DEPROP_VAE = "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data"  # rgb source
+VAES = (DEPROP_VAE, "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_data", RGB_DEPROP_VAE,
+        "rgb_bce_cnn_zdim64_beta1_kl_tolerance0.0_data")
+# The traffic agent's NPC and reward-shape flags (README, its quality row).
+TRAFFIC_SETTINGS = dict(num_npcs=4, npc_keep_lat=-0.5, npc_keep_gain=1.0, reward_min_speed=30.0,
+                        reward_target_speed=38.0, reward_max_speed=55.0, low_speed_threshold=29.0)
+# agent: (shipped directory, eval envs, VAE or None, TrainerSettings fields, PPOConfig fields)
+REFERENCES = {
+    "latent_agent": ("models/latent_agent_pretrained", 8, DEPROP_VAE, {}, {}),
+    "rgb_latent": ("models/rgb_latent_pretrained", 8, RGB_DEPROP_VAE, {"vae_source": "rgb"}, {}),
+    "traffic_agent": ("models/traffic_agent_pretrained", 16, None, TRAFFIC_SETTINGS,
+                      {"obs_fn": "vector_npc"}),
+}
 
 
 def np_tree(tree):
@@ -97,7 +113,7 @@ def vae_tree(name: str):
     ck = Checkpointer(os.path.join(src, "checkpoints"))
     step = ck.latest_step()
     ck.close()
-    sd = convert.vae_encoder_state_dict(np_tree(variables), model._encoded_conv_shape())
+    sd = convert.vae_state_dict(np_tree(variables), model.source_shape, model.model_type)
     return step, {"model": sd}
 
 
@@ -114,34 +130,38 @@ def export(out: str) -> None:
         print(f"vae/models/{name} step {step} -> {out}/vae_models/{name}", flush=True)
 
 
-def reference_eval(out: str, steps: int, command: str) -> dict:
-    """The JAX package's greedy eval of the shipped latent agent, the way
-    its cli.run_eval runs it (a Trainer on a scratch copy of the newest
+def reference_eval(out: str, agent: str, steps: int, command: str) -> dict:
+    """The JAX package's greedy eval of one shipped agent, the way its
+    cli.run_eval runs it (a Trainer on a scratch copy of the newest
     checkpoint, so the shipped directory is not written to)."""
     from carla_ppo_tpu.training.loop import Trainer, TrainerSettings
 
-    src = os.path.join(REPO, "models/latent_agent_pretrained/checkpoints")
+    src_dir, envs, vae, settings_kw, config_kw = REFERENCES[agent]
+    src = os.path.join(REPO, src_dir, "checkpoints")
     step = Checkpointer(src).latest_step()
+    vae_path = None if vae is None else os.path.join(REPO, "vae/models", vae)
     with tempfile.TemporaryDirectory() as tmp:
         shutil.copytree(os.path.join(src, str(step)),
-                        os.path.join(tmp, "latent_agent", "checkpoints", str(step)))
+                        os.path.join(tmp, agent, "checkpoints", str(step)))
         settings = TrainerSettings(
-            model_name="latent_agent", models_root=tmp, eval_envs=REFERENCE_ENVS,
-            eval_max_steps=steps, vae_model=os.path.join(REPO, "vae/models", DEPROP_VAE),
+            model_name=agent, models_root=tmp, eval_envs=envs, eval_max_steps=steps,
+            vae_model=vae_path, **settings_kw,
         )
-        trainer = Trainer(settings, ppo.PPOConfig(num_envs=REFERENCE_ENVS))
+        trainer = Trainer(settings, ppo.PPOConfig(num_envs=envs, **config_kw))
         t0 = time.perf_counter()
         metrics = trainer.evaluate()
         seconds = time.perf_counter() - t0
         trainer.close()
     result = {
         "command": command,
-        "agent": "models/latent_agent_pretrained", "step": int(step),
-        "vae_model": f"vae/models/{DEPROP_VAE}",
-        "num_envs": REFERENCE_ENVS, "max_steps": steps, "device": jax.devices()[0].platform,
+        "agent": src_dir, "step": int(step),
+        "vae_model": None if vae is None else f"vae/models/{vae}",
+        "settings": settings_kw, "config": config_kw,
+        "num_envs": envs, "max_steps": steps, "device": jax.devices()[0].platform,
         "seconds": seconds, "metrics": metrics,
     }
-    path = os.path.join(out, "latent_agent", f"reference_eval_{steps}.json")
+    os.makedirs(os.path.join(out, agent), exist_ok=True)
+    path = os.path.join(out, agent, f"reference_eval_{steps}.json")
     with open(path, "w") as f:
         json.dump(result, f, indent=1)
     print(f"wrote {path}: " + json.dumps(result["metrics"]), flush=True)
@@ -153,13 +173,17 @@ def main(argv=None) -> None:
     parser.add_argument("--out", default=os.path.join(REPO, "models", "torch"))
     parser.add_argument("--reference_eval", type=int, default=0,
                         help="steps of the JAX greedy-eval reference (0: convert instead)")
+    parser.add_argument("--agent", default="latent_agent", choices=sorted(REFERENCES),
+                        help="the agent of --reference_eval")
     args = parser.parse_args(argv)
     if jax.default_backend() != "cpu":
         raise SystemExit("run on the CPU backend (JAX_PLATFORMS=cpu)")
     if args.reference_eval > 0:
         command = ("JAX_PLATFORMS=cpu python scripts/export_torch_checkpoints.py "
                    f"--reference_eval {args.reference_eval}")
-        reference_eval(args.out, args.reference_eval, command)
+        if args.agent != "latent_agent":
+            command += f" --agent {args.agent}"
+        reference_eval(args.out, args.agent, args.reference_eval, command)
     else:
         export(args.out)
 

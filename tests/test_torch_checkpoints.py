@@ -37,10 +37,14 @@ AGENTS = {  # golden key: converted directory
     "mixed_agent": "mixed_agent",
     "latent_agent": "latent_agent",
     "route_latent_agent": "route_latent",
+    "rgb_latent_agent": "rgb_latent",
+    "traffic_agent": "traffic_agent",
 }
 VAES = {
     "seg_vae": "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_data",
     "deprop_vae": "from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data",
+    "rgb_deprop_vae": "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data",
+    "rgb_recon_vae": "rgb_bce_cnn_zdim64_beta1_kl_tolerance0.0_data",
 }
 
 
@@ -83,8 +87,11 @@ def test_converted_agent_matches_golden(key):
 def test_converted_vae_matches_golden(key):
     want = _goldens()[key]
     vae = vae_common.load_vae(str(TORCH_MODELS / "vae_models" / VAES[key]), device="cpu")
+    assert vae.decoder is not None  # every converted VAE is whole
     with torch.no_grad():
         z = vae.encode(torch.from_numpy(synthetic_frame(vae.source_shape)))
+        recon = vae.generate_from_latent(z)
+    assert recon.shape == (1, *vae.target_shape) and bool(torch.isfinite(recon).all())
     np.testing.assert_allclose(z[0, :8].numpy(), want["z_prefix"], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(float(z.sum()), want["z_sum"], rtol=1e-4, atol=1e-4)
 
@@ -184,8 +191,9 @@ def test_parse_model_dir_names():
         32, "mlp", 3, 1)
     assert vae_common.model_dir_name("seg", "bce", "cnn", 64, 1.0, 0.0, source_depth=1) == VAES[
         "deprop_vae"].replace("_deprop", "")
-    with pytest.raises(NotImplementedError, match="A7"):
-        vae_common.build_vae(64, "mlp", 1)
+    mlp = vae_common.build_vae(32, "mlp", 1, source_shape=(80, 160, 3))
+    assert (mlp.model_type, mlp.source_shape, mlp.target_shape) == ("mlp", (80, 160, 3), (80, 160, 1))
+    assert mlp.decode(torch.zeros(2, 32)).shape == (2, 80 * 160)
 
 
 @pytest.mark.gpu

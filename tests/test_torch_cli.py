@@ -1,10 +1,12 @@
 """The port's CLIs (carla_ppo_tpu_torch/cli) against the JAX package's.
 
-Flag parity: every flag of carla_ppo_tpu.cli.train and cli.run_eval exists
-in the port's parser with the same destination, default, type (by name, or
-by what it makes of the same strings) and choices. Values the port does not
-run yet raise NotImplementedError naming their ROADMAP item. Then a tiny
-train -> resume -> run_eval drive on the CPU.
+Flag parity: every flag of carla_ppo_tpu.cli.train, run_eval, train_vae
+and collect_data exists in the port's parser with the same destination,
+default, type (by name, or by what it makes of the same strings) and
+choices (train_vae's --models_dir default differs on purpose). Values the
+port does not run yet raise NotImplementedError naming their ROADMAP item.
+Then tiny drives on the CPU: train -> resume -> run_eval; traffic and RGB
+training; collect_data -> train_vae -> load_vae.
 """
 
 from __future__ import annotations
@@ -12,18 +14,30 @@ from __future__ import annotations
 import argparse
 import os
 
+import numpy as np
 import pytest
+import torch
 
+from carla_ppo_tpu.cli import collect_data as j_collect_data
 from carla_ppo_tpu.cli import run_eval as j_run_eval
 from carla_ppo_tpu.cli import train as j_train
-from carla_ppo_tpu_torch.cli import run_eval, train
+from carla_ppo_tpu.cli import train_vae as j_train_vae
+from carla_ppo_tpu.utils import datasets as j_datasets
+from carla_ppo_tpu_torch.cli import collect_data, run_eval, train, train_vae
+from carla_ppo_tpu_torch.models import vae_common
 from carla_ppo_tpu_torch.training import loop
 from carla_ppo_tpu_torch.training import ppo
 from tests.test_torch_common import REPO
 
 DEPROP = str(REPO / "models" / "torch" / "vae_models"
              / "from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data")
-PORT_ONLY = {"train": {"device"}, "run_eval": {"device", "eval_max_steps"}}
+RGB_DEPROP = str(REPO / "models" / "torch" / "vae_models"
+                 / "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data")
+PORT_ONLY = {"train": {"device"}, "run_eval": {"device", "eval_max_steps"},
+             "train_vae": {"device"}, "collect_data": {"device"}}
+# Defaults the port changes on purpose: its VAEs go beside its converted
+# ones, not among the JAX package's orbax checkpoints in vae/models.
+PORT_DEFAULTS = {("train_vae", "models_dir"): "models/torch/vae_models"}
 TYPE_PROBES = ("0", "1", "0:3e-4,800:1e-4", "")
 
 
@@ -47,16 +61,39 @@ def _same_type(a, b) -> bool:
     return [_probe(a, t) for t in TYPE_PROBES] == [_probe(b, t) for t in TYPE_PROBES]
 
 
-@pytest.mark.parametrize("name", ["train", "run_eval"])
-def test_flag_parity(name):
-    jax_parser = {"train": j_train, "run_eval": j_run_eval}[name].build_parser()
-    port_parser = {"train": train, "run_eval": run_eval}[name].build_parser()
+class _Parsed(Exception):
+    pass
+
+
+def _jax_parser(module, monkeypatch) -> argparse.ArgumentParser:
+    """The parser a JAX CLI builds inside main(): caught at parse_args."""
+    if hasattr(module, "build_parser"):
+        return module.build_parser()
+    caught = []
+
+    def catch(self, *args, **kwargs):
+        caught.append(self)
+        raise _Parsed
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", catch)
+        with pytest.raises(_Parsed):
+            module.main([])
+    return caught[0]
+
+
+@pytest.mark.parametrize("name", ["train", "run_eval", "train_vae", "collect_data"])
+def test_flag_parity(name, monkeypatch):
+    jax_parser = _jax_parser({"train": j_train, "run_eval": j_run_eval, "train_vae": j_train_vae,
+                              "collect_data": j_collect_data}[name], monkeypatch)
+    port_parser = {"train": train, "run_eval": run_eval, "train_vae": train_vae,
+                   "collect_data": collect_data}[name].build_parser()
     want, got = _actions(jax_parser), _actions(port_parser)
     assert set(got) - set(want) == PORT_ONLY[name]
     for dest, a in want.items():
         b = got[dest]
         assert b.option_strings == a.option_strings, dest
-        assert b.default == a.default, dest
+        assert b.default == PORT_DEFAULTS.get((name, dest), a.default), dest
         assert _same_type(a.type, b.type), dest
         assert b.choices == a.choices, dest
         assert b.required == a.required, dest
@@ -83,9 +120,6 @@ def test_train_defaults_build_the_jax_configs():
     (["--num_devices", "2"], "A10"),
     (["--num_devices", "0"], "A10"),
     (["--record_eval", "1"], "A12"),
-    (["--num_npcs", "2"], "A9"),
-    (["--obs_fn", "vector_npc"], "A9"),
-    (["--vae_source", "rgb", "--vae_model", DEPROP], "A6"),
 ])
 def test_unported_values_raise(argv, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
@@ -127,3 +161,71 @@ def test_train_resume_and_run_eval_on_cpu(tmp_path, monkeypatch, capsys):
     metrics = run_eval.main(["--model_name", "c", "--device", "cpu", "--vae_model", DEPROP,
                              "--num_envs", "2", "--no_video", "--checkpoint", "latest"])
     assert metrics["eval/episode_steps"] <= 20 and "eval/termination_reasons/4" in metrics
+
+
+def _capped_evals(monkeypatch, steps=8):
+    def capped(self, params):
+        return ppo.evaluate(self.train_state.model, params, self._eval_generator,
+                            num_envs=self.settings.eval_envs, max_steps=steps, config=self.config,
+                            latent_obs=self.latent_obs, chunk=steps)
+
+    monkeypatch.setattr(loop.Trainer, "_evaluate_on", capped)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--num_npcs", "2", "--obs_fn", "vector_npc", "--reward_fn", "reward_traffic_add",
+     "--npc_keep_lat", "-0.5", "--npc_keep_gain", "1.0"],
+    ["--vae_source", "rgb", "--vae_model", RGB_DEPROP],
+], ids=["traffic", "rgb"])
+def test_traffic_and_rgb_training_run_on_cpu(argv, tmp_path, monkeypatch):
+    """The settings that raised before this slice (NPC traffic with the
+    radar observation, and latents of the RGB camera) train an iteration
+    through cli.train; evals capped at 8 steps."""
+    monkeypatch.chdir(tmp_path)
+    _capped_evals(monkeypatch)
+    t = {}
+    real_init = loop.Trainer.__init__
+
+    def keep(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        t["trainer"] = self
+
+    monkeypatch.setattr(loop.Trainer, "__init__", keep)
+    train.main(["--model_name", "x", "--device", "cpu", "--num_envs", "4", "--horizon", "4",
+                "--num_minibatches", "2", "--num_epochs", "1", "--eval_interval", "1",
+                "--eval_envs", "2", "--num_episodes", "1"] + argv)
+    tr = t["trainer"]
+    assert tr.iteration == 1 and os.path.isfile("models/x/best_score.json")
+    if "--num_npcs" in argv:
+        p = tr.env_params
+        assert (p.num_npcs, p.npc_keep_lat, p.npc_keep_gain) == (2, -0.5, 1.0)
+        assert p.terminate_on_collision and tr.train_state.model.pi.dense[0].in_features == 24
+    else:
+        assert tr.latent_obs.source == "rgb" and tr.latent_obs.vae_model.source_shape == (80, 160, 3)
+
+
+def test_collect_data_then_train_vae_on_cpu(tmp_path, monkeypatch):
+    """collect_data (defaults, NPCs on, 6 pairs) writes PNG pairs that the
+    JAX package's datasets.load_images reads; train_vae --epochs 1 on them
+    writes a checkpoint that load_vae restores (and refuses to train into
+    that directory again)."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        collect_data.main(["--manual", "--device", "cpu"])
+    assert collect_data.main(["--output_dir", "data", "--num_images", "6", "--device", "cpu"]) == 6
+    rgb = j_datasets.load_images("data/rgb", j_datasets.preprocess_rgb_frame)
+    seg = j_datasets.load_images("data/segmentation", j_datasets.preprocess_seg_frame)
+    assert rgb.shape == (6, 80, 160, 3) and seg.shape == (6, 80, 160, 1)
+    classes = np.round(seg * 12)
+    assert np.allclose(seg * 12, classes, atol=1e-5) and classes.max() <= 12 and len(np.unique(classes)) >= 4
+    assert 0.0 <= rgb.min() and rgb.max() <= 1.0 and rgb.std() > 0.05
+    history = train_vae.main(["--dataset", "data", "--epochs", "1", "--batch_size", "2",
+                              "--device", "cpu"])
+    assert len(history["val_loss"]) == 1 and np.isfinite(history["val_loss"][0])
+    model_dir = "models/torch/vae_models/seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_data"
+    vae = vae_common.load_vae(model_dir, device="cpu")
+    assert vae.source_shape == (80, 160, 3) and vae.target_shape == (80, 160, 1)
+    with torch.no_grad():
+        assert vae.encode(torch.from_numpy(rgb)).shape == (6, 64)
+    with pytest.raises(FileExistsError):
+        train_vae.main(["--dataset", "data", "--epochs", "1", "--batch_size", "2", "--device", "cpu"])

@@ -123,7 +123,8 @@ def test_port_imports_no_networkx(path):
     assert [str(f) for f in files if _NETWORKX.search(f.read_text())] == []
 
 
-@pytest.mark.parametrize("kernel", ["ground_pass", "composite", "ground_pass_pose"])
+@pytest.mark.parametrize("kernel", ["ground_pass", "composite", "ground_pass_pose",
+                                    "composite_depth_sky"])
 def test_cuda_wrappers_refuse_cpu_tensors(kernel):
     """A kernel wrapper launches on CUDA tensors or raises; it never falls
     back to the plain version."""
@@ -136,9 +137,9 @@ def test_cuda_wrappers_refuse_cpu_tensors(kernel):
                 torch.zeros(8, 128, 8), torch.zeros(8, 8, 128), torch.zeros(2, 6400),
                 torch.zeros(5, 3, dtype=torch.int32), 6400, 12800, (0.0,) * 8,
             )
-        elif kernel == "composite":
-            RC.composite_cuda(torch.zeros(8, 72, 8), torch.zeros(80),
-                              torch.zeros(8, 12800, dtype=torch.int32), 160)
+        elif kernel in ("composite", "composite_depth_sky"):
+            fn = RC.composite_cuda if kernel == "composite" else RC.composite_depth_sky_cuda
+            fn(torch.zeros(8, 72, 8), torch.zeros(80), torch.zeros(8, 12800, dtype=torch.int32), 160)
         else:
             RC.ground_pass_pose_cuda(
                 torch.zeros(8, dtype=torch.int32), torch.zeros(1200, 8), torch.zeros(8, 8), 128,

@@ -200,10 +200,3 @@ def test_track_baking_matches(kind):
         ref = np.asarray(getattr(want, name))
         assert arrays[name].dtype == ref.dtype, name
         np.testing.assert_array_equal(arrays[name], ref, err_msg=name)
-
-
-def test_npc_traffic_not_ported(lap_params):
-    tp = port_params(lap_params, num_npcs=2)
-    ts = tenv.init_env_batch(tp, 2, make_generator(0, "cpu"))
-    with pytest.raises(NotImplementedError):
-        tenv.step(ts, torch.zeros(2, 2), tp)

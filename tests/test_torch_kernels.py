@@ -14,7 +14,10 @@ driven around the track with props; the pose-fed kernel also against the
 ground-pass kernel; the ground-pass kernel on unaligned cameras, a banked
 route batch and an odd batch size; the composite's scalar pixel loop on
 an odd width and on frames off 16-byte alignment; and the render dispatch counting one
-launch of each kernel per frame batch.
+launch of each kernel per frame batch. The composite's depth-and-sky mode
+(the RGB camera's) is held the same way: its plain version against the
+loop oracle on the CPU, its kernel against the plain version, classes,
+depth bits and sky, on the card.
 
 This module imports neither JAX nor the JAX package, so on a machine
 without JAX the card tests run with
@@ -387,7 +390,56 @@ def test_plain_composite_edge_cases(case):
     _check_composite_edge_case(case, got, rows, ground, W)
 
 
-@pytest.mark.parametrize("kernel, what", [("composite", "candidates"), ("ground_pass", "window"),
+def _loop_composite_depth_sky(rows, depth, ground, W):
+    """(classes, depth, sky) of the depth-and-sky mode by the loop: the
+    billboard's depth where it is visible, else the row's ground depth; sky
+    on rows of infinite ground depth where no billboard is visible."""
+    B, N, _ = rows.shape
+    H = depth.shape[0]
+    cls = _loop_composite(rows, depth, ground, W)
+    dep = np.repeat(depth[None, :], W, axis=0).T.reshape(-1)[None].repeat(B, 0).copy()
+    sky = np.isinf(dep)
+    for b in range(B):
+        for r in range(H):
+            for c in range(W):
+                best = 2**31 - 1
+                for n in range(N):
+                    uc, hw, keyf, ok, vt, vb = rows[b, n, :6]
+                    u, v = np.float32(c + 0.5), np.float32(r + 0.5)
+                    if ok > 0 and abs(u - uc) <= hw and vt <= v <= vb:
+                        best = min(best, int(np.array(keyf, np.float32).view(np.int32)))
+                bd = np.array(best & ~15, np.int32).view(np.float32)
+                if bd < depth[r]:
+                    dep[b, r * W + c] = bd
+                    sky[b, r * W + c] = False
+    return cls, dep, sky
+
+
+DEPTH_SKY_CASES = dict(COMPOSITE_EDGE_CASES, crafted=_crafted_composite)
+
+
+def _assert_depth_sky_equal(got, want):
+    """Classes, depth bit patterns and sky all equal."""
+    cls, dep, sky = (np.asarray(x.cpu()) if isinstance(x, torch.Tensor) else x for x in got)
+    np.testing.assert_array_equal(cls, want[0])
+    np.testing.assert_array_equal(dep.view(np.int32), np.asarray(want[1], np.float32).view(np.int32))
+    np.testing.assert_array_equal(sky, want[2])
+
+
+@pytest.mark.parametrize("case", sorted(DEPTH_SKY_CASES))
+def test_plain_composite_depth_sky_matches_loop(case):
+    rows, depth, ground, W = DEPTH_SKY_CASES[case]()
+    got = R.composite_plain(torch.as_tensor(rows), torch.as_tensor(depth), torch.as_tensor(ground), W,
+                            env_chunk=2, return_depth_sky=True)
+    assert got[1].dtype == torch.float32 and got[2].dtype == torch.bool
+    want = _loop_composite_depth_sky(rows, depth, ground, W)
+    _assert_depth_sky_equal(got, want)
+    assert want[2].any() and (~want[2]).any() and np.isfinite(want[1]).any()
+
+
+@pytest.mark.parametrize("kernel, what", [("composite", "candidates"),
+                                          ("composite_depth_sky", "candidates"),
+                                          ("ground_pass", "window"),
                                           ("ground_pass", "stripes"), ("ground_pass_pose", "window"),
                                           ("ground_pass_pose", "stripes")])
 def test_cuda_wrappers_refuse_oversize(kernel, what):
@@ -397,10 +449,11 @@ def test_cuda_wrappers_refuse_oversize(kernel, what):
     K0 = RC.MAX_WINDOW + 1 if what == "window" else 128
     n_stripes = RC.MAX_STRIPES + 1 if what == "stripes" else 5
     stripes = torch.zeros(n_stripes, 3, dtype=torch.int32)
-    if kernel == "composite":
+    if kernel.startswith("composite"):
         limit = RC.MAX_CANDIDATES
-        call = lambda: RC.composite_cuda(torch.zeros(2, limit + 1, 8), torch.zeros(80),  # noqa: E731
-                                         torch.zeros(2, 12800, dtype=torch.int32), 160)
+        fn = RC.composite_cuda if kernel == "composite" else RC.composite_depth_sky_cuda
+        call = lambda: fn(torch.zeros(2, limit + 1, 8), torch.zeros(80),  # noqa: E731
+                          torch.zeros(2, 12800, dtype=torch.int32), 160)
     elif kernel == "ground_pass":
         limit = RC.MAX_WINDOW if what == "window" else RC.MAX_STRIPES
         call = lambda: RC.ground_pass_cuda(torch.zeros(2, K0, 8), torch.zeros(2, 8, K0),  # noqa: E731
@@ -491,7 +544,8 @@ def test_render_batch_launches_both_kernels(cuda_device):
     RC.reset_launch_counts()
     frames = R.render_batch(s, p)
     torch.cuda.synchronize()
-    assert RC.LAUNCHES == {"ground_pass": 1, "ground_pass_pose": 0, "composite": 1}
+    assert RC.LAUNCHES == {"ground_pass": 1, "ground_pass_pose": 0, "composite": 1,
+                           "composite_depth_sky": 0}
     assert frames.shape == (64, 80, 160) and frames.device.type == "cuda"
     assert int(frames.min()) >= 0 and int(frames.max()) <= 12
 
@@ -566,7 +620,8 @@ def test_ground_kernel_banked_route_batch_on_card(cuda_device):
     RC.reset_launch_counts()
     rich = R.render_batch_banked(s, p, cam)
     torch.cuda.synchronize()
-    assert RC.LAUNCHES == {"ground_pass": 1, "ground_pass_pose": 0, "composite": 1}
+    assert RC.LAUNCHES == {"ground_pass": 1, "ground_pass_pose": 0, "composite": 1,
+                           "composite_depth_sky": 0}
     assert torch.equal(rich.view(256, -1), rich_plain)
     assert bool((rich_plain != ground_plain).any())
 
@@ -623,3 +678,61 @@ def test_composite_unaligned_frames_on_card(cuda_device, case):
     got = got.cpu().numpy()
     np.testing.assert_array_equal(got, _loop_composite(rows, depth, ground, W))
     _check_composite_edge_case(case, got, rows, ground, W)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(DEPTH_SKY_CASES))
+def test_composite_depth_sky_cases_on_card(cuda_device, case):
+    """The depth-and-sky kernel against the loop oracle on the crafted and
+    edge cases, with the frames aligned (the 16-byte pixel pass where the
+    width allows) and 4 bytes off alignment (the scalar loop)."""
+    rows, depth, ground, W = DEPTH_SKY_CASES[case]()
+    want = _loop_composite_depth_sky(rows, depth, ground, W)
+    r, d, g = _cuda(rows, depth, ground, device=cuda_device)
+    _assert_depth_sky_equal(RC.composite_depth_sky_cuda(r, d, g, W), want)
+    buf = torch.zeros(ground.size + 1, dtype=torch.int32, device=cuda_device)
+    g1 = buf[1:].view(ground.shape)
+    g1.copy_(torch.as_tensor(ground))
+    _assert_depth_sky_equal(RC.composite_depth_sky_cuda(r, d, g1, W), want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_composite_depth_sky_matches_plain_on_card(cuda_device):
+    """A 256-env driven batch with props: classes, depth bits and sky equal
+    the plain version's, and the classes equal the class-only kernel's."""
+    s, p = _card_batch(cuda_device)
+    cam = R.CameraConfig()
+    win_cols, payload = R.prep_windows(s, p, cam)
+    ground = R.ground_pass(win_cols, payload, cam, R.RoadStyle())
+    rows = R.prep_candidates(s, p, cam)
+    depth = R._device_layout(cam, str(rows.device))[3]
+    plain = R.composite_plain(rows, depth, ground, cam.width, return_depth_sky=True)
+    before = RC.LAUNCHES["composite_depth_sky"]
+    got = R.composite_depth_sky(rows, ground, cam)
+    torch.cuda.synchronize()
+    assert RC.LAUNCHES["composite_depth_sky"] == before + 1
+    _assert_depth_sky_equal(got, [x.cpu().numpy() for x in plain])
+    assert torch.equal(got[0], RC.composite_cuda(rows, depth, ground, cam.width))
+    assert bool(got[2].any()) and bool(torch.isfinite(got[1]).any())
+
+
+@pytest.mark.gpu
+def test_render_rgb_batch_launches_kernels_on_card(cuda_device):
+    """render_rgb_batch: one ground pass and one depth-and-sky composite per
+    batch, [B, H, W, 3] in [0, 1], equal to the plain versions' frames on
+    the same card tensors shaded the same way."""
+    s, p = _card_batch(cuda_device, n=64, steps=2)
+    cam = R.CameraConfig()
+    RC.reset_launch_counts()
+    rgb = R.render_rgb_batch(s, p)
+    torch.cuda.synchronize()
+    assert RC.LAUNCHES == {"ground_pass": 1, "ground_pass_pose": 0, "composite": 0,
+                           "composite_depth_sky": 1}
+    assert rgb.shape == (64, 80, 160, 3) and float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0
+    win_cols, payload = R.prep_windows(s, p, cam)
+    slab, stripes, sky_px, depth = R._device_layout(cam, str(win_cols.device))
+    ground = R.ground_pass_plain(win_cols, payload, slab, stripes, sky_px, 12800, CONSTS)
+    plain = R.composite_plain(R.prep_candidates(s, p, cam), depth, ground, cam.width,
+                              return_depth_sky=True)
+    assert torch.equal(rgb, R._shade_rgb(*plain, cam))
