@@ -8,9 +8,11 @@ stream) and runs the vectorised greedy metric pass over `--num_envs` envs.
 Recording videos needs the interactive env and the video writer (ROADMAP
 A12): until then it raises NotImplementedError unless `--no_video` is given.
 
-Example (the converted shipped latent agent):
+Examples (the converted shipped latent and pixel agents):
   python -m carla_ppo_tpu_torch.cli.run_eval --model_name torch/latent_agent \\
       --vae_model models/torch/vae_models/from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data \\
+      --num_envs 8 --no_video
+  python -m carla_ppo_tpu_torch.cli.run_eval --model_name torch/pixel_turnkey --obs pixels \\
       --num_envs 8 --no_video
 """
 

@@ -4,17 +4,21 @@ The flags and defaults of carla_ppo_tpu/cli/train.py, plus `--device`
 (default "cuda"; "cpu" must be asked for). `--num_episodes` counts training
 iterations (one iteration = one rollout + update over the whole env batch).
 Values this port does not run yet raise NotImplementedError naming their
-ROADMAP item: `--obs pixels` (A8), `--num_devices` other than 1 (A10),
-`--record_eval 1` (A12).
+ROADMAP item: `--num_devices` other than 1 (A10), `--record_eval 1` (A12).
+`--obs pixels` trains the pixel agent with the joint VAE (config 4); its
+model computes in float32 whatever `--policy_dtype` says.
 
 Examples:
   python -m carla_ppo_tpu_torch.cli.train --model_name lap_v0 --num_episodes 200
   python -m carla_ppo_tpu_torch.cli.train --model_name lap_latent \\
       --vae_model models/torch/vae_models/from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data
-  python -m carla_ppo_tpu_torch.cli.train --model_name lap_rgb --vae_source rgb \
+  python -m carla_ppo_tpu_torch.cli.train --model_name lap_rgb --vae_source rgb \\
       --vae_model models/torch/vae_models/seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data
-  python -m carla_ppo_tpu_torch.cli.train --model_name traffic --num_npcs 4 --obs_fn vector_npc \
+  python -m carla_ppo_tpu_torch.cli.train --model_name traffic --num_npcs 4 --obs_fn vector_npc \\
       --reward_fn reward_traffic_add
+  python -m carla_ppo_tpu_torch.cli.train --model_name pixel_turnkey --obs pixels --deprop_aux 1 \\
+      --learning_rate 3e-4 --kl_target 0.015 --freeze_on_solve 2 \\
+      --warm_start_vae models/torch/vae_models/from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data
 """
 
 from __future__ import annotations

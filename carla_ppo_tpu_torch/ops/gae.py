@@ -2,7 +2,9 @@
 
 Rollouts are continuing (auto-reset), so terminals mask both the bootstrap
 and the advantage carry:  A_t = delta_t + gamma * lam * (1 - done_t) * A_{t+1}.
-The scan form (a reverse loop over time, vectorised over envs) is ported.
+Two forms, as in the JAX package: `compute_gae`, a reverse loop over time
+vectorised over envs (T steps), and `compute_gae_associative`, a
+log-depth reverse scan over the recurrence's (a, delta) pairs.
 """
 
 from __future__ import annotations
@@ -29,6 +31,23 @@ def compute_gae(rewards: Tensor, values: Tensor, bootstrap_value: Tensor, dones:
         carry = deltas[t] + gamma * lam * not_done[t] * carry
         adv[t] = carry
     return adv
+
+
+def compute_gae_associative(rewards: Tensor, values: Tensor, bootstrap_value: Tensor,
+                            dones: Tensor, gamma: float = 0.99, lam: float = 0.95) -> Tensor:
+    """The same advantages in ceil(log2 T) steps: A_t = b_t + a_t * A_{t+1}
+    with a_t = gamma * lam * (1 - done_t) and b_t = delta_t. After the step
+    with offset d, (a_t, b_t) maps A_{t+2d} to A_t (Hillis-Steele, from the
+    end); a suffix that runs past T meets A_T = 0 and keeps its b."""
+    deltas = temporal_deltas(rewards, values, bootstrap_value, dones, gamma)
+    a = gamma * lam * (1.0 - dones.to(rewards.dtype))
+    b = deltas
+    d, T = 1, deltas.shape[0]
+    while d < T:
+        b = torch.cat([b[:-d] + a[:-d] * b[d:], b[-d:]])
+        a = torch.cat([a[:-d] * a[d:], a[-d:]])
+        d *= 2
+    return b
 
 
 def normalize_advantages(advantages: Tensor, eps: float = 1e-8) -> Tensor:

@@ -8,11 +8,13 @@ solve-aware freeze and the non-finite-loss rollback, as the JAX Trainer
 does. Counters live inside the checkpointed TrainState, so a resume
 continues the numbering.
 
-Ported: `obs` "vector" (and `obs_fn` "vector_npc") and "latent" (seg or
-rgb `vae_source`), `env_kind` "lap", "route" and "lap_bank", NPC traffic on
-the lap env, on one device. The rest raises NotImplementedError naming the
-ROADMAP queue-A item that brings it. `Trainer(..., device=)` is the one
-addition: the port runs on the card unless the caller asks for the CPU.
+Ported: `obs` "vector" (and `obs_fn` "vector_npc"), "latent" (seg or rgb
+`vae_source`) and "pixels" (the pixel agent trained with the joint VAE,
+training/pixels.py, warm-started from a VAE on fresh runs), `env_kind`
+"lap", "route" and "lap_bank", NPC traffic on the lap env, on one device.
+The rest raises NotImplementedError naming the ROADMAP queue-A item that
+brings it. `Trainer(..., device=)` is the one addition: the port runs on
+the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -30,8 +32,10 @@ from carla_ppo_tpu_torch.envs import lap_bank_env, route_env, route_planner
 from carla_ppo_tpu_torch.envs import track as track_mod
 from carla_ppo_tpu_torch.envs.observations import obs_dim_for
 from carla_ppo_tpu_torch.envs.types import EnvParams
+from carla_ppo_tpu_torch.models import vae_common
+from carla_ppo_tpu_torch.models.pixel_policy import PixelActorCritic
 from carla_ppo_tpu_torch.models.policy import ActorCritic
-from carla_ppo_tpu_torch.training import ppo
+from carla_ppo_tpu_torch.training import pixels, ppo
 from carla_ppo_tpu_torch.utils.checkpoint import Checkpointer
 from carla_ppo_tpu_torch.utils.device import exact_float32, make_generator, resolve_device
 from carla_ppo_tpu_torch.utils.metrics import MetricsWriter
@@ -65,8 +69,8 @@ class TrainerSettings:
     fps: int = 30
     action_smoothing: float = 0.0
     reward_fn: str = "reward_speed_centering_angle_multiply"
-    # "vector", "latent" or "pixels" (ROADMAP A8); None: latent when
-    # vae_model is set, else vector.
+    # "vector", "latent" or "pixels"; None: latent when vae_model is set,
+    # else vector.
     obs: Optional[str] = None
     vae_model: Optional[str] = None
     vae_model_type: Optional[str] = None
@@ -103,7 +107,6 @@ class TrainerSettings:
 def check_ported(settings: TrainerSettings, config: ppo.PPOConfig) -> None:
     """Raise NotImplementedError for what this port does not run yet."""
     unported = [
-        (settings.obs == "pixels", "obs 'pixels' (the pixel policy with a joint VAE)", "A8"),
         (settings.num_devices != 1, f"num_devices={settings.num_devices} (multi-GPU)", "A10"),
         (settings.record_eval, "record_eval (eval videos)", "A12"),
     ]
@@ -231,37 +234,41 @@ class Trainer:
             self.env_params = with_overrides(self.env_params)
             self._heldout_params = {k: with_overrides(p) for k, p in self._heldout_params.items()}
 
-        # Observations: ground-truth vector or frozen-VAE latent.
+        # Observations: ground-truth vector, frozen-VAE latent or pixels.
         self.obs_mode = settings.obs or ("latent" if settings.vae_model else "vector")
-        if self.obs_mode not in ("vector", "latent"):
+        if self.obs_mode not in ("vector", "latent", "pixels"):
             raise ValueError(f"unknown obs mode {self.obs_mode!r}")
         if self.obs_mode == "latent" and not settings.vae_model:
             raise ValueError("--obs latent requires --vae_model")
-        mixed = settings.policy_dtype == "mixed"
-        # policy_dtype is also the frozen encoder's compute dtype; the
-        # encoder runs only in rollouts and evals, so "mixed" puts it in
-        # bfloat16 with the behaviour policy.
-        vae_dtype = torch.bfloat16 if mixed else POLICY_DTYPES[settings.policy_dtype]
-        self.latent_obs = None
-        if self.obs_mode == "latent":
-            from carla_ppo_tpu_torch.models import vae_common
-
-            vae = vae_common.load_vae(settings.vae_model, settings.vae_z_dim,
-                                      settings.vae_model_type, dtype=vae_dtype, device=dev)
-            self.latent_obs = ppo.LatentObs(vae_model=vae, source=settings.vae_source)
-            obs_dim = self.latent_obs.obs_dim
-        else:
-            obs_dim = obs_dim_for(config.obs_fn)
-
         # "mixed": the update model computes in float32 and the rollout acts
-        # with a bfloat16-trunk twin of it (train(): rollout_model()).
-        self._rollout_dtype = torch.bfloat16 if mixed else None
-        model = ActorCritic(
-            obs_dim, initial_std=config.initial_std,
-            generator=make_generator(settings.seed, "cpu"),
-            compute_dtype=POLICY_DTYPES[settings.policy_dtype],
-        ).to(dev)
-        self.train_state = ppo.create_train_state(model, config, make_generator(settings.seed, dev))
+        # with a bfloat16-trunk twin of it (train(): rollout_model()). The
+        # pixel agent computes in float32 whatever policy_dtype says, as the
+        # JAX Trainer builds it.
+        mixed = settings.policy_dtype == "mixed"
+        self._rollout_dtype = torch.bfloat16 if mixed and self.obs_mode != "pixels" else None
+        self.latent_obs = None
+        self.pix = None
+        model_gen = make_generator(settings.seed, "cpu")
+        if self.obs_mode == "pixels":
+            self.pix = pixels.PixelConfig(vae_scale=settings.vae_scale,
+                                          deprop_aux=settings.deprop_aux)
+            model = PixelActorCritic(initial_std=config.initial_std, generator=model_gen)
+        else:
+            if self.obs_mode == "latent":
+                # policy_dtype is also the frozen encoder's compute dtype; the
+                # encoder runs only in rollouts and evals, so "mixed" puts it
+                # in bfloat16 with the behaviour policy.
+                vae_dtype = torch.bfloat16 if mixed else POLICY_DTYPES[settings.policy_dtype]
+                vae = vae_common.load_vae(settings.vae_model, settings.vae_z_dim,
+                                          settings.vae_model_type, dtype=vae_dtype, device=dev)
+                self.latent_obs = ppo.LatentObs(vae_model=vae, source=settings.vae_source)
+                obs_dim = self.latent_obs.obs_dim
+            else:
+                obs_dim = obs_dim_for(config.obs_fn)
+            model = ActorCritic(obs_dim, initial_std=config.initial_std, generator=model_gen,
+                                compute_dtype=POLICY_DTYPES[settings.policy_dtype])
+        create = pixels.create_pixel_train_state if self.pix is not None else ppo.create_train_state
+        self.train_state = create(model.to(dev), config, make_generator(settings.seed, dev))
         self.env_states = ppo.init_env_batch(
             self.env_params, config.num_envs, self.train_state.generator, env_kind=config.env_kind)
 
@@ -277,6 +284,10 @@ class Trainer:
                 restored = candidate
         if restored is not None:
             self.train_state = restored
+        elif self.obs_mode == "pixels" and settings.warm_start_vae:
+            pixels.warm_start_from_vae(self.train_state.model,
+                                       vae_common.load_vae(settings.warm_start_vae, device=dev))
+            print(f"warm-started perception from {settings.warm_start_vae}", flush=True)
 
         self.writer = MetricsWriter(self.log_dir)
         hparams = {**dataclasses.asdict(settings), **dataclasses.asdict(config)}
@@ -331,6 +342,12 @@ class Trainer:
         return self.train_state.model.with_compute_dtype(self._rollout_dtype)
 
     def _evaluate_on(self, params: EnvParams) -> Dict[str, torch.Tensor]:
+        if self.obs_mode == "pixels":
+            return pixels.evaluate(
+                self.train_state.model, params, self._eval_generator,
+                num_envs=self.settings.eval_envs, max_steps=self.settings.eval_max_steps,
+                config=self.config, pix=self.pix,
+            )
         return ppo.evaluate(
             self.train_state.model, params, self._eval_generator,
             num_envs=self.settings.eval_envs, max_steps=self.settings.eval_max_steps,
@@ -428,10 +445,15 @@ class Trainer:
             # train_iteration updates the model in place; this copy is what a
             # rollback returns to when no checkpoint exists yet.
             before = _cloned(self.train_state.checkpoint_tree())
-            new_state, new_envs, m = ppo.train_iteration(
-                self.train_state, self.env_states, self.env_params, self.config,
-                latent_obs=self.latent_obs, freeze=freeze, rollout_model=self.rollout_model(),
-            )
+            if self.obs_mode == "pixels":
+                new_state, new_envs, m = pixels.pixel_train_iteration(
+                    self.train_state, self.env_states, self.env_params, self.config, self.pix,
+                    freeze=freeze)
+            else:
+                new_state, new_envs, m = ppo.train_iteration(
+                    self.train_state, self.env_states, self.env_params, self.config,
+                    latent_obs=self.latent_obs, freeze=freeze, rollout_model=self.rollout_model(),
+                )
             metrics = {k: float(v) for k, v in m.items()}
             if freeze is not None:
                 metrics["train/frozen"] = float(self._frozen)

@@ -42,8 +42,8 @@ class PPOConfig:
     """Hyperparameters; the same fields and defaults as the JAX PPOConfig.
 
     Ported values: env_kind "lap", "route" or "lap_bank" (the last two on
-    a track bank), obs_fn "vector" (or a LatentObs), the scan-form GAE
-    (use_associative_gae must stay False)."""
+    a track bank), obs_fn "vector" (or a LatentObs); use_associative_gae
+    takes ops/gae.compute_gae_associative."""
 
     learning_rate: float = 1e-4
     lr_decay: float = 1.0
@@ -77,8 +77,6 @@ class PPOConfig:
         if self.env_kind not in ENV_KINDS:
             raise NotImplementedError(
                 f"env_kind {self.env_kind!r} is not ported (one of {sorted(ENV_KINDS)})")
-        if self.use_associative_gae:
-            raise NotImplementedError("associative GAE is not ported (scan form only)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,14 +154,22 @@ def lr_at(config: PPOConfig, count: Tensor) -> Tensor:
     )
 
 
+def global_norm(tensors: Sequence[Tensor]) -> Tensor:
+    """sqrt of the sum of squares over every element (optax.global_norm)."""
+    return torch.sqrt(sum((t * t).sum() for t in tensors))
+
+
 @torch.no_grad()
 def clip_and_adam(
     params: Sequence[Tensor], grads: Sequence[Tensor], state: AdamState, config: PPOConfig,
-    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+    clip_norm: float | None = None, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 ) -> Tuple[List[Tensor], AdamState]:
-    """New parameters and Adam state (nothing is modified in place)."""
-    max_norm = config.max_grad_norm if config.max_grad_norm > 0 else 1e9
-    g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    """New parameters and Adam state (nothing is modified in place).
+    `clip_norm` replaces config.max_grad_norm (a parameter group's own
+    clip); <= 0 disables the clip (1e9, as the JAX package writes it)."""
+    max_norm = config.max_grad_norm if clip_norm is None else clip_norm
+    max_norm = max_norm if max_norm > 0 else 1e9
+    g_norm = global_norm(grads)
     trigger = g_norm < max_norm
     grads = [torch.where(trigger, g, (g / g_norm) * max_norm) for g in grads]
     lr = lr_at(config, state.count)
@@ -178,6 +184,18 @@ def clip_and_adam(
         for p, m, v in zip(params, mu, nu)
     ]
     return new_params, AdamState(count=count, mu=mu, nu=nu)
+
+
+def adam_tree(state: AdamState, names: Sequence[str]) -> Dict[str, Any]:
+    return {"count": state.count, "mu": dict(zip(names, state.mu)), "nu": dict(zip(names, state.nu))}
+
+
+def adam_from_tree(tree: Dict[str, Any], names: Sequence[str], device: torch.device) -> AdamState:
+    return AdamState(
+        count=tree["count"].to(device=device, dtype=torch.int32),
+        mu=[tree["mu"][n].to(device) for n in names],
+        nu=[tree["nu"][n].to(device) for n in names],
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -196,16 +214,23 @@ class TrainState:
     generator: torch.Generator
     reward_norm: RunningMoments
 
+    def opt_tree(self) -> Dict[str, Any]:
+        """The Adam state as saved: count, and the moments keyed by
+        parameter name."""
+        return adam_tree(self.opt_state, [n for n, _ in self.model.named_parameters()])
+
+    def opt_from_tree(self, tree: Dict[str, Any], model: torch.nn.Module) -> Any:
+        """Inverse of opt_tree, onto `model`'s parameter names and device."""
+        return adam_from_tree(tree, [n for n, _ in model.named_parameters()],
+                              next(model.parameters()).device)
+
     def checkpoint_tree(self) -> Dict[str, Any]:
         """What utils.checkpoint saves: the model's state_dict, the Adam
         moments keyed by parameter name, the counters, the reward moments
         and the generator's state."""
-        names = [n for n, _ in self.model.named_parameters()]
-        opt = self.opt_state
         return {
             "model": self.model.state_dict(),
-            "opt_state": {"count": opt.count, "mu": dict(zip(names, opt.mu)),
-                          "nu": dict(zip(names, opt.nu))},
+            "opt_state": self.opt_tree(),
             "iteration": int(self.iteration),
             "train_step": int(self.train_step),
             "total_env_steps": float(self.total_env_steps),
@@ -228,13 +253,6 @@ class TrainState:
         model = copy.deepcopy(self.model)
         model.load_state_dict(tree["model"])
         dev = next(model.parameters()).device
-        names = [n for n, _ in model.named_parameters()]
-        opt = tree["opt_state"]
-        opt_state = AdamState(
-            count=opt["count"].to(device=dev, dtype=torch.int32),
-            mu=[opt["mu"][n].to(dev) for n in names],
-            nu=[opt["nu"][n].to(dev) for n in names],
-        )
         generator = torch.Generator(device=self.generator.device)
         saved = tree.get("generator")
         if saved is not None and tree.get("generator_device") == self.generator.device.type:
@@ -245,9 +263,9 @@ class TrainState:
                       f"{self.generator.device.type}: keeping this run's seeded generator", flush=True)
             generator.set_state(self.generator.get_state())
         rn = tree["reward_norm"]
-        return TrainState(
+        return type(self)(
             model=model,
-            opt_state=opt_state,
+            opt_state=self.opt_from_tree(tree["opt_state"], model),
             iteration=int(tree["iteration"]),
             train_step=int(tree["train_step"]),
             total_env_steps=float(tree["total_env_steps"]),
@@ -397,8 +415,13 @@ def adv_snr_gate(advantages: Tensor, returns: Tensor, config: PPOConfig) -> Tupl
     return snr, snr < config.adv_snr_min
 
 
-def _select(keep: Tensor, new: Sequence[Tensor], old: Sequence[Tensor]) -> List[Tensor]:
+def select_each(keep: Tensor, new: Sequence[Tensor], old: Sequence[Tensor]) -> List[Tensor]:
     return [torch.where(keep, a, b) for a, b in zip(new, old)]
+
+
+def select_adam(keep: Tensor, new: AdamState, old: AdamState) -> AdamState:
+    return AdamState(count=torch.where(keep, new.count, old.count),
+                     mu=select_each(keep, new.mu, old.mu), nu=select_each(keep, new.nu, old.nu))
 
 
 def ppo_update(
@@ -417,7 +440,8 @@ def ppo_update(
     `perms` (one permutation per epoch) replaces the generator's draws."""
     model = train_state.model
     rewards = traj.rewards
-    advantages = gae.compute_gae(
+    gae_fn = gae.compute_gae_associative if config.use_associative_gae else gae.compute_gae
+    advantages = gae_fn(
         rewards, traj.values, bootstrap, traj.dones, config.discount_factor, config.gae_lambda
     )
     returns = advantages + traj.values
@@ -472,12 +496,8 @@ def ppo_update(
                 if config.kl_target > 0:
                     stop = stop | (metrics["train/approx_kl"] > config.kl_target)
                 keep = ~stop
-                new_params = _select(keep, new_params, params)
-                new_opt = AdamState(
-                    count=torch.where(keep, new_opt.count, opt.count),
-                    mu=_select(keep, new_opt.mu, opt.mu),
-                    nu=_select(keep, new_opt.nu, opt.nu),
-                )
+                new_params = select_each(keep, new_params, params)
+                new_opt = select_adam(keep, new_opt, opt)
                 metrics["train/update_skipped"] = 1.0 - keep.to(torch.float32)
             with torch.no_grad():
                 for p, q in zip(params, new_params):
@@ -526,6 +546,14 @@ def train_iteration(
         env_states = dataclasses.replace(env_states, vecnorm_return=ret_carry)
         train_state.reward_norm = reward_norm
     metrics = ppo_update(train_state, traj, bootstrap, config, freeze=freeze)
+    finish_iteration(train_state, metrics, episodic, config, traj.rewards.numel())
+    return train_state, env_states, metrics
+
+
+def finish_iteration(train_state: TrainState, metrics: Dict[str, Tensor],
+                     episodic: Dict[str, Tensor], config: PPOConfig, env_steps: int) -> None:
+    """Add the episodic metrics and this iteration's learning rate and
+    entropy scale to `metrics`, and advance train_state's counters."""
     metrics.update(episodic)
     if config.lr_schedule:
         lr = schedule_value(config.lr_schedule, config.learning_rate,
@@ -536,12 +564,10 @@ def train_iteration(
     metrics["train/entropy_scale"] = schedule_value(
         config.entropy_schedule, config.entropy_scale, torch.tensor(train_state.iteration)
     )
-    T, B = traj.rewards.shape
     train_state.iteration += 1
     train_state.train_step += config.updates_per_iteration
-    train_state.total_env_steps += float(T * B)
+    train_state.total_env_steps += float(env_steps)
     train_state.episodes_done += int(episodic["train/episodes_finished"].item())
-    return train_state, env_states, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -578,7 +604,33 @@ def evaluate(
     round-robin and add `eval/laps_per_track` ([n_tracks]). The loop
     checks for early exit once per `chunk` steps."""
     obs_builder = make_obs_fn(latent_obs, config)
-    step_obs = None if latent_obs is not None else config.obs_fn
+
+    def observe(states, out):
+        if out is None or latent_obs is not None:
+            return obs_builder(states, env_params)
+        return out.obs  # the env step's vector observation
+
+    return greedy_episodes(lambda obs: model(obs)[0], observe, env_params, generator, num_envs,
+                           max_steps, config, chunk,
+                           step_obs=None if latent_obs is not None else config.obs_fn)
+
+
+def greedy_episodes(
+    act_mean: Callable[[Any], Tensor],
+    observe: Callable[[EnvState, Any], Any],
+    env_params: EnvParams,
+    generator: torch.Generator,
+    num_envs: int,
+    max_steps: int,
+    config: PPOConfig,
+    chunk: int,
+    step_obs: str | None = None,
+) -> Dict[str, Tensor]:
+    """The greedy eval loop of `evaluate`, for any observation: `observe`
+    (states, step output or None at the reset) gives the observation (a
+    tensor or a tuple of tensors, env-major) and `act_mean` the action
+    mean from it. Finished envs stay frozen; each env's first terminal
+    snapshot is latched."""
     track_ids = None
     if config.env_kind == "route":
         states = route_env.reset(env_params, generator, is_training=False, batch=num_envs)
@@ -594,23 +646,28 @@ def evaluate(
             return route_env.step(s, a, env_params, generator, obs_fn=step_obs)
         return lap_env.step(s, a, env_params, obs_fn=step_obs)
 
-    obs = obs_builder(states, env_params)
-    dev = obs.device
+    def keep_active(active, new, old):
+        if isinstance(new, tuple):
+            return tuple(keep_active(active, n, o) for n, o in zip(new, old))
+        return torch.where(active.view((-1,) + (1,) * (new.ndim - 1)), new, old)
+
+    obs = observe(states, None)
+    dev = states.vehicle.pos.device
     done = torch.zeros(num_envs, dtype=torch.bool, device=dev)
     snap = {k: torch.zeros(num_envs, device=dev) for k in _SNAP_KEYS}
     t = 0
     while t < max_steps and not bool(done.all()):
         for _ in range(chunk):
             active = ~done & (t < max_steps)
-            mean = model(obs)[0]
+            mean = act_mean(obs)
             next_states, out = env_step(states, mean)
-            new_obs = obs_builder(next_states, env_params) if latent_obs is not None else out.obs
+            new_obs = observe(next_states, out)
             newly = out.done & active
             fresh = _snap_of(out)
             snap = {k: torch.where(newly, fresh[k], snap[k]) for k in _SNAP_KEYS}
             done = done | newly
             states = lap_env.select_envs(active, next_states, states)
-            obs = torch.where(active[:, None], new_obs, obs)
+            obs = keep_active(active, new_obs, obs)
             t += 1
     live = _snap_of(states)
     snap = {k: torch.where(done, snap[k], live[k]) for k in _SNAP_KEYS}

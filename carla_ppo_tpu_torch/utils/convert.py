@@ -18,7 +18,11 @@ neither JAX nor the JAX package:
   counters and the reward-normalisation moments, in the tree that
   utils.checkpoint saves. The JAX PRNG key cannot be carried over: the tree
   has no generator state, and a restore keeps the template's generator,
-  which the Trainer seeds from TrainerSettings.seed.
+  which the Trainer seeds from TrainerSettings.seed;
+- the pixel agent (`pixel_actor_critic_state_dict`, `pixel_train_state_tree`):
+  the conv encoder, z heads and decoder as in the VAE (the heads' rows
+  permuted), the ActorCritic under `policy.`, and optax's two-group
+  `multi_transform` state as one AdamState per group.
 """
 
 from __future__ import annotations
@@ -96,6 +100,12 @@ def train_state_tree(
         "model": model,
         "opt_state": {"count": torch.tensor(int(np.asarray(adam["count"])), dtype=torch.int32),
                       **moments},
+        **_counter_tree(counters, reward_norm),
+    }
+
+
+def _counter_tree(counters: Mapping[str, Any], reward_norm: Mapping[str, Any]) -> Dict[str, Any]:
+    return {
         "iteration": int(np.asarray(counters["iteration"])),
         "train_step": int(np.asarray(counters["train_step"])),
         "total_env_steps": float(np.asarray(counters["total_env_steps"])),
@@ -133,7 +143,7 @@ def vae_state_dict(
     tree: Mapping[str, Any], source_shape: Tuple[int, int, int], model_type: str = "cnn",
 ) -> Dict[str, torch.Tensor]:
     """flax VAE params -> models.vae.VAE state_dict: encoder, latent heads
-    and decoder, for the conv or the MLP VAE."""
+    and (where the tree has one) decoder, for the conv or the MLP VAE."""
     p = _params(tree)
     if model_type == "cnn":
         from carla_ppo_tpu_torch.models.vae import encoded_conv_shape
@@ -148,6 +158,8 @@ def vae_state_dict(
         for jax_name, name in (("mean", "mean_head"), ("logstd_square", "logstd_head")):
             out[f"{name}.weight"], out[f"{name}.bias"] = dense(
                 p[jax_name]["kernel"], p[jax_name]["bias"])
+    if "decoder" not in p:
+        return out
     dec = p["decoder"]
     if model_type == "cnn":
         out["decoder.dense.weight"], out["decoder.dense.bias"] = dense(
@@ -165,6 +177,56 @@ def vae_state_dict(
         out["decoder.dense_out.weight"], out["decoder.dense_out.bias"] = dense(
             dec["dense_out"]["kernel"], dec["dense_out"]["bias"])
     return out
+
+
+# The parameter groups of the pixel agent's two-group optimizer
+# (training/pixels.py): these top-level flax names are the policy group,
+# the rest (encoder, z heads, decoder) the encoder group.
+PIXEL_POLICY_TOPLEVEL = ("pi", "action_mean", "vf", "value", "action_logstd")
+
+
+def pixel_actor_critic_state_dict(
+    tree: Mapping[str, Any], frame_shape: Tuple[int, int, int] = (80, 160, 1),
+) -> Dict[str, torch.Tensor]:
+    """flax PixelActorCritic params -> models.pixel_policy.PixelActorCritic
+    state_dict (without the action-box buffers). A tree holding one
+    optimizer group only (an Adam moment of the encoder or the policy
+    group) converts to that group's entries."""
+    p = _params(tree)
+    out: Dict[str, torch.Tensor] = {}
+    if "encoder" in p:
+        vae_view = {"encoder": p["encoder"], "mean": p["z_mean"], "logstd_square": p["z_logstd_sq"]}
+        if "decoder" in p:
+            vae_view["decoder"] = p["decoder"]
+        out.update(vae_state_dict(vae_view, frame_shape))
+    if "pi" in p:
+        out.update({f"policy.{k}": v for k, v in actor_critic_state_dict(p).items()})
+    return out
+
+
+def pixel_train_state_tree(
+    params: Mapping[str, Any],
+    adams: Mapping[str, Mapping[str, Any]],
+    counters: Mapping[str, Any],
+    reward_norm: Mapping[str, Any],
+    action_low: Tuple[float, ...] = (-1.0, 0.0),
+    action_high: Tuple[float, ...] = (1.0, 1.0),
+) -> Dict[str, Any]:
+    """A JAX pixel TrainState (as numpy trees) -> the checkpoint tree of
+    training.pixels.PixelTrainState, without a generator state.
+
+    `adams` maps each optimizer group ("policy", "encoder") to its optax
+    ScaleByAdamState's `count`, `mu` and `nu`, the moments holding that
+    group's parameters only (optax's MaskedNode leaves of the other group
+    dropped); each group keeps its own count."""
+    model = pixel_actor_critic_state_dict(params)
+    model["policy.action_low"] = torch.tensor(action_low, dtype=torch.float32)
+    model["policy.action_high"] = torch.tensor(action_high, dtype=torch.float32)
+    opt = {}
+    for group, adam in adams.items():
+        opt[group] = {"count": torch.tensor(int(np.asarray(adam["count"])), dtype=torch.int32),
+                      **{k: pixel_actor_critic_state_dict(adam[k]) for k in ("mu", "nu")}}
+    return {"model": model, "opt_state": opt, **_counter_tree(counters, reward_norm)}
 
 
 _VEHICLE_FIELDS = ("pos", "yaw", "vx", "vy", "yaw_rate", "steer_angle")

@@ -99,7 +99,30 @@ Phases, one line each; any failure raises and exits non-zero:
      epoch and finite val losses, and the ground pass and the
      depth-and-sky composite launched (a saved pair is one RGB render
      whose classes are its seg frame);
- 15. the kernels line (JSON, one row per TPU kernel, and a row for the
+ 15. [pixels] end-to-end pixel PPO with the joint VAE through cli.train
+     in-process at full width (1024 envs, PPOConfig defaults, the shipped
+     widths: 2,951,842 parameters) with the README's turnkey recipe (lr
+     3e-4, --kl_target 0.015, --freeze_on_solve 2, --obs pixels
+     --deprop_aux 1), warm-started from the converted de-prop VAE: 2
+     iterations, then resumed to 3 (the resumed run must not warm-start
+     again), evals every 2 iterations capped at PIXEL_EVAL_STEPS; every
+     loss and both groups' gradient norms finite, and every rollout must
+     launch the ground pass and the class-only composite horizon + 1 = 129
+     times. Prints each iteration's rollout and update ms between CUDA
+     events, env-steps/s, the update's torch.cuda.max_memory_allocated,
+     and the iteration's bound: its float operations (forward and backward
+     of encoder, decoder, heads and MLPs over 3 epochs of 131,072 frames,
+     and the rollout's 129 x 1024 encodes) over the card's 67 TFLOP/s of
+     float32 outside the tensor cores (TF32 stays off); then where one
+     update minibatch's time goes: pixel_loss and its backward on 32,768
+     frames (PPOConfig's 256 envs x 128 steps; random class ids, the
+     convolutions' cost does not depend on them), CUDA events after a
+     warm-up, then torch.profiler's device time by kernel name;
+ 16. [pixel_pretrained] cli.run_eval --obs pixels of the converted turnkey
+     pixel agent (models/torch/pixel_turnkey, step 625), 8 envs, 6000
+     steps: no failed episode, the distance within 5% of the JAX CPU
+     reference (models/torch/pixel_turnkey/reference_eval_6000.json);
+ 17. the kernels line (JSON, one row per TPU kernel, and a row for the
      composite's depth-and-sky mode), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -146,6 +169,7 @@ DEPROP_VAE = os.path.join(REPO, "models", "torch", "vae_models",
 RGB_DEPROP_VAE = os.path.join(REPO, "models", "torch", "vae_models",
                               "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data")
 LATENT_AGENT = os.path.join(REPO, "models", "torch", "latent_agent")
+PIXEL_AGENT = os.path.join(REPO, "models", "torch", "pixel_turnkey")
 RGB_AGENT = os.path.join(REPO, "models", "torch", "rgb_latent")
 TRAFFIC_AGENT = os.path.join(REPO, "models", "torch", "traffic_agent")
 TRAFFIC_STEPS = 3000
@@ -162,6 +186,13 @@ VAE_EPOCHS = 2
 # them, by hand.
 PRETRAINED_STEPS = 6000
 PRETRAINED_ENVS = 8
+# [pixels]: the README's turnkey pixel recipe at full width; its greedy
+# evals (4 envs, every 2 iterations) capped at PIXEL_EVAL_STEPS.
+PIXEL_ARGV = ["--obs", "pixels", "--deprop_aux", "1", "--learning_rate", "3e-4",
+              "--kl_target", "0.015", "--freeze_on_solve", "2", "--warm_start_vae", DEPROP_VAE,
+              "--eval_interval", "2", "--eval_envs", "4"]
+PIXEL_EVAL_STEPS = 1024
+FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, an FMA counted as two
 
 
 def log(msg: str) -> None:
@@ -660,8 +691,14 @@ def main() -> int:
                                   TRAFFIC_STEPS, 0.10, (), require_finished_or_running=False,
                                   require_overtakes=True)
     vae_launches = vae_pipeline_phase(torch, RC, smi, driven, params)
+    # 15.-16. End-to-end pixels through cli.train, and the shipped turnkey
+    # pixel agent through cli.run_eval.
+    pixel_launches = pixel_phase(torch, RC, smi)
+    pixel_eval_launches = eval_phase(RC, smi, "pixel_pretrained", PIXEL_AGENT, ["--obs", "pixels"],
+                                     PRETRAINED_ENVS, PRETRAINED_STEPS, 0.05,
+                                     ("ground_pass", "composite"))
 
-    # 15. Results: one row per TPU kernel.
+    # 17. Results: one row per TPU kernel.
     def row(name, source, replaces, launches, key, err):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}",
                 "replaces": f"{PALLAS}:{replaces}", "launches": launches, "max_abs_err": err,
@@ -694,7 +731,8 @@ def main() -> int:
         f"composite {bank_launches['composite']}")
     log(f"[launches] trainer path: {trainer_launches}; pretrained path: {pretrained_launches}; "
         f"rgb_pretrained path: {rgb_eval_launches}; traffic path: {traffic_launches}; "
-        f"vae_pipeline path: {vae_launches}")
+        f"vae_pipeline path: {vae_launches}; pixels path: {pixel_launches}; pixel_pretrained "
+        f"path: {pixel_eval_launches}")
     log(json.dumps({"kernels": kernels}))
     over = [(k["name"], k["bound_share"]) for k in kernels if k["bound_share"] > 1.05]
     if over:
@@ -845,6 +883,186 @@ def trainer_phase(torch, ppo, RC, smi):
             log(f"[trainer] {smi}: {dtype} {name}, last rollout's {len(tail)} calls: "
                 f"{d_ms / len(tail):.3f} ms per call between events, host {h_ms / len(tail):.3f} ms")
     return launches
+
+
+def pixel_iteration_flops(horizon: int, num_envs: int, epochs: int) -> float:
+    """Float operations of one pixel-PPO iteration at the shipped widths:
+    the update's forward and backward (3 x the forward) of encoder, z
+    heads, decoder and MLPs over every stored frame in each epoch, and the
+    rollout's forward of encoder, heads and MLPs over horizon + 1 batches.
+    A k x k convolution costs 2 x k^2 x C_in x C_out per output pixel (per
+    input pixel for the transposed ones)."""
+    h, w, c, enc = 80, 160, 1, 0.0
+    for f in (32, 64, 128, 256):
+        h, w = (h - 4) // 2 + 1, (w - 4) // 2 + 1
+        enc += 2 * 16 * c * f * h * w
+        c = f
+    flat = h * w * c  # 3 x 8 x 256
+    heads = 2 * 2 * flat * 64
+    mlps = 2 * (67 * 500 + 500 * 300 + 300 * 2) + 2 * (67 * 500 + 500 * 300 + 300)
+    dec = 2 * 64 * flat
+    for f, k in ((128, 4), (64, 4), (32, 5), (1, 4)):
+        dec += 2 * k * k * c * f * h * w
+        h, w, c = (h - 1) * 2 + k, (w - 1) * 2 + k, f
+    assert (h, w) == (80, 160)
+    frames = horizon * num_envs
+    return 3 * epochs * frames * (enc + heads + dec + mlps) + (horizon + 1) * num_envs * (enc + heads + mlps)
+
+
+def pixel_phase(torch, RC, smi):
+    """[pixels]: cli.train --obs pixels at full width with the turnkey
+    recipe, 2 iterations then resumed to 3. Returns the launch counts of
+    the phase."""
+    from carla_ppo_tpu_torch.cli import train as train_cli
+    from carla_ppo_tpu_torch.training import loop, pixels, ppo
+
+    @dataclasses.dataclass
+    class SmokeSettings(loop.TrainerSettings):
+        checkpoint_interval: int = 1
+        eval_max_steps: int = PIXEL_EVAL_STEPS
+
+    runs, iterations, rollout_launches, peaks, warm_starts = [], [], [], [], []
+
+    class RecordingTrainer(loop.Trainer):
+        def train(self, num_iterations=None):
+            start = self.iteration
+            metrics = super().train(num_iterations)
+            runs.append(dict(start=start, end=self.iteration))
+            return metrics
+
+    real = {name: getattr(pixels, name) for name in
+            ("pixel_rollout", "pixel_update", "pixel_train_iteration", "warm_start_from_vae")}
+
+    def counted_rollout(*args, **kwargs):
+        before = dict(RC.LAUNCHES)
+        out = real["pixel_rollout"](*args, **kwargs)
+        torch.cuda.synchronize()
+        rollout_launches.append({k: RC.LAUNCHES[k] - before[k] for k in before})
+        return out
+
+    def measured_update(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = real["pixel_update"](*args, **kwargs)
+        torch.cuda.synchronize()
+        peaks.append((base, torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()))
+        return out
+
+    def recorded_iteration(*args, **kwargs):
+        state, envs, m = real["pixel_train_iteration"](*args, **kwargs)
+        iterations.append({k: float(v) for k, v in m.items()})
+        return state, envs, m
+
+    def counted_warm_start(*args, **kwargs):
+        warm_starts.append(1)
+        return real["warm_start_from_vae"](*args, **kwargs)
+
+    config = ppo.PPOConfig()
+    saved = (train_cli.TrainerSettings, train_cli.Trainer)
+    train_cli.TrainerSettings, train_cli.Trainer = SmokeSettings, RecordingTrainer
+    pixels.pixel_rollout, pixels.pixel_update = counted_rollout, measured_update
+    pixels.pixel_train_iteration, pixels.warm_start_from_vae = recorded_iteration, counted_warm_start
+    try:
+        torch.cuda.empty_cache()
+        with in_temp_dir():
+            RC.reset_launch_counts()
+            h0 = time.perf_counter()
+            with timed_stages(torch, [(pixels, "pixel_rollout", "rollout"),
+                                      (pixels, "pixel_update", "update")]) as phases:
+                train_cli.main(PIXEL_ARGV + ["--model_name", "pixels", "--num_episodes", "2"])
+                train_cli.main(PIXEL_ARGV + ["--model_name", "pixels", "--num_episodes", "3"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - h0
+            launches = dict(RC.LAUNCHES)
+    finally:
+        train_cli.TrainerSettings, train_cli.Trainer = saved
+        for name, fn in real.items():
+            setattr(pixels, name, fn)
+        torch.cuda.empty_cache()
+    first, second = runs
+    log(f"[pixels] cli.train --obs pixels, 1024 envs: run 1 iterations {first['start']}->"
+        f"{first['end']}, run 2 {second['start']}->{second['end']}, {seconds:.2f} s for both runs "
+        f"with construction and evals; warm starts {len(warm_starts)}; launches {launches}")
+    if first["end"] != 2 or second["start"] < 1 or second["end"] != 3 or len(warm_starts) != 1:
+        raise AssertionError(f"the pixel runs did not warm-start once and resume to 3: {runs}, "
+                             f"{len(warm_starts)} warm starts")
+    keys = ("train_loss/loss", "train_loss/policy", "train_loss/value", "train_loss/vae_recon",
+            "train_loss/vae_kl", "train_grad/policy_norm", "train_grad/encoder_norm",
+            "train/approx_kl", "train/update_skipped")
+    for i, m in enumerate(iterations):
+        log(f"[pixels] iteration {i}: " + " ".join(f"{k}={m[k]:.6g}" for k in keys))
+        bad = [k for k in keys if not math.isfinite(m[k])]
+        if bad:
+            raise AssertionError(f"non-finite pixel training metrics: {bad}")
+    for i, got in enumerate(rollout_launches):
+        if got["ground_pass"] != config.horizon + 1 or got["composite"] != config.horizon + 1:
+            raise AssertionError(f"pixel rollout {i} launched {got}, not {config.horizon + 1} of "
+                                 "the ground pass and the composite")
+    steps = config.horizon * config.num_envs
+    flops = pixel_iteration_flops(config.horizon, config.num_envs, config.num_epochs)
+    bound_ms = flops / FP32_FLOPS_PER_S * 1e3
+    for i, (roll, upd, (base, peak, reserved)) in enumerate(zip(phases["rollout"], phases["update"],
+                                                                peaks)):
+        r_ms, u_ms = roll[0].elapsed_time(roll[1]), upd[0].elapsed_time(upd[1])
+        log(f"[pixels] {smi}: iteration {i} rollout {r_ms:.3f} ms + update {u_ms:.3f} ms between "
+            f"CUDA events = {steps / (r_ms + u_ms) * 1e3:.1f} env-steps/s, update share "
+            f"{u_ms / (r_ms + u_ms):.3f}; update peak memory {peak / 2**30:.3f} GiB "
+            f"(max_memory_allocated; {base / 2**30:.3f} GiB held before it, {reserved / 2**30:.3f} GiB "
+            f"reserved at most); launches "
+            f"{rollout_launches[i]}")
+    log(f"[pixels] {smi}: iteration bound {flops / 1e12:.3f} TFLOP / {FP32_FLOPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s = {bound_ms:.1f} ms (float32 outside the tensor cores, TF32 off)")
+    pixel_update_profile(torch, smi)
+    return launches
+
+
+def pixel_update_profile(torch, smi):
+    """Where one pixel update minibatch's time goes (see phase 15)."""
+    from carla_ppo_tpu_torch.models.pixel_policy import PixelActorCritic
+    from carla_ppo_tpu_torch.training import pixels, ppo
+    from carla_ppo_tpu_torch.utils.device import make_generator
+
+    config, pix = ppo.PPOConfig(), pixels.PixelConfig(deprop_aux=True)
+    n = config.horizon * config.num_envs // config.num_minibatches
+    g = make_generator(0, "cuda")
+    model = PixelActorCritic(generator=make_generator(0, "cpu")).cuda()
+    batch = {
+        "frames": torch.randint(0, 13, (n, 80, 160), generator=g, device="cuda", dtype=torch.uint8),
+        "target_frames": torch.randint(0, 13, (n, 80, 160), generator=g, device="cuda",
+                                       dtype=torch.uint8),
+        "measurements": torch.rand(n, 3, generator=g, device="cuda"),
+        "actions": torch.rand(n, 2, generator=g, device="cuda"),
+        "log_probs": torch.randn(n, generator=g, device="cuda") - 2.0,
+        "returns": torch.randn(n, generator=g, device="cuda"),
+        "advantages": torch.randn(n, generator=g, device="cuda"),
+    }
+
+    def step():
+        for p in model.parameters():
+            p.grad = None
+        loss, _ = pixels.pixel_loss(model, batch, config, pix, g)
+        loss.backward()
+
+    step()  # warm-up: cuDNN settles its algorithms
+    ms = cuda_ms(torch, step, 2, warmup=0)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += e.device_time_total / 1e3
+            by_name[e.name][1] += 1
+    busy = sum(v for v, _ in by_name.values())
+    log(f"[pixels profile] {smi}: pixel_loss + backward on {n} frames: {ms:.3f} ms between CUDA "
+        f"events (x {config.updates_per_iteration} updates per iteration); torch.profiler: "
+        f"{busy:.3f} ms of device kernels in {sum(c for _, c in by_name.values())} launches")
+    for name, (kms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"[pixels profile]   {kms:9.3f} ms {100 * kms / busy:5.1f}%  {count:4d}x  {name[:100]}")
+    del model, batch
+    torch.cuda.empty_cache()
 
 
 def eval_phase(RC, smi, tag, agent_dir, argv, envs, steps, tolerance, kernels,

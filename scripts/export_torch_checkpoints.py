@@ -2,15 +2,20 @@
 """Convert the shipped JAX (orbax) checkpoints into the PyTorch port's format.
 
     JAX_PLATFORMS=cpu python scripts/export_torch_checkpoints.py [--out models/torch]
+    JAX_PLATFORMS=cpu python scripts/export_torch_checkpoints.py --agent pixel_agent
     JAX_PLATFORMS=cpu python scripts/export_torch_checkpoints.py --reference_eval 6000 \
-        [--agent latent_agent | rgb_latent | traffic_agent]
+        [--agent latent_agent | rgb_latent | traffic_agent | pixel_turnkey | pixel_agent]
 
 Needs the JAX package and orbax (it reads the orbax checkpoints); the port
 reads what it writes without either. For each agent the newest step
 becomes `<out>/<name>/checkpoints/<step>/state.pt`: the ActorCritic
 weights, the Adam moments and count, the counters and the reward moments,
 through carla_ppo_tpu_torch.utils.convert.train_state_tree (the JAX PRNG key
-is not carried over). Each VAE's newest step becomes
+is not carried over); a pixel agent through pixel_train_state_tree, its
+optimizer's two groups (policy, encoder) as one Adam state each. The pixel
+agents with their moments are ~35 MB each, so only `pixel_turnkey` is
+converted by default; `--agent pixel_agent` converts the other one alone.
+Each VAE's newest step becomes
 `<out>/vae_models/<the JAX directory's name>/checkpoints/<step>/state.pt`,
 the whole model (encoder, latent heads and decoder); the directory name
 still carries the configuration that vae_common.parse_model_dir reads.
@@ -18,11 +23,11 @@ still carries the configuration that vae_common.parse_model_dir reads.
 `--reference_eval STEPS` instead runs the JAX package's own greedy eval
 (its Trainer.evaluate, as its cli.run_eval does) of one shipped agent
 (`--agent`, see REFERENCES: the latent agent with the de-prop seg VAE, the
-RGB latent agent with the rgb->de-prop VAE, or the traffic agent under its
-4-NPC lane-keeping traffic), capped at STEPS steps, on the CPU, and writes
-the metrics with the command that made them to
-`<out>/<agent>/reference_eval_<STEPS>.json`; chip_smoke.py holds the port's
-drive of the converted agent against it.
+RGB latent agent with the rgb->de-prop VAE, the traffic agent under its
+4-NPC lane-keeping traffic, or a pixel agent), capped at STEPS steps, on
+the CPU, and writes the metrics with the command that made them to
+`<out>/<agent>/reference_eval_<STEPS>.json`; chip_smoke.py holds the
+port's drive of the converted agent against it.
 """
 
 from __future__ import annotations
@@ -43,7 +48,9 @@ sys.path.insert(0, REPO)
 
 from carla_ppo_tpu.envs.observations import vector_npc_obs_dim, vector_obs_dim  # noqa: E402
 from carla_ppo_tpu.models import vae_common  # noqa: E402
+from carla_ppo_tpu.models.pixel_policy import PixelActorCritic  # noqa: E402
 from carla_ppo_tpu.models.policy import ActorCritic  # noqa: E402
+from carla_ppo_tpu.training import pixels  # noqa: E402
 from carla_ppo_tpu.training import ppo  # noqa: E402
 from carla_ppo_tpu.utils.checkpoint import Checkpointer  # noqa: E402
 from carla_ppo_tpu_torch.utils import checkpoint as torch_checkpoint  # noqa: E402
@@ -59,6 +66,10 @@ AGENTS = (
     ("rgb_latent", "models/rgb_latent_pretrained", LATENT_OBS_DIM),
     ("traffic_agent", "models/traffic_agent_pretrained", vector_npc_obs_dim()),
 )
+# port name: shipped directory; only pixel_turnkey is converted by default
+PIXEL_AGENTS = {"pixel_turnkey": "models/pixel_turnkey_pretrained",
+                "pixel_agent": "models/pixel_agent_pretrained"}
+COMMITTED_PIXEL_AGENTS = ("pixel_turnkey",)
 DEPROP_VAE = "from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data"
 RGB_DEPROP_VAE = "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data"  # rgb source
 VAES = (DEPROP_VAE, "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_data", RGB_DEPROP_VAE,
@@ -72,6 +83,7 @@ REFERENCES = {
     "rgb_latent": ("models/rgb_latent_pretrained", 8, RGB_DEPROP_VAE, {"vae_source": "rgb"}, {}),
     "traffic_agent": ("models/traffic_agent_pretrained", 16, None, TRAFFIC_SETTINGS,
                       {"obs_fn": "vector_npc"}),
+    **{name: (src, 8, None, {"obs": "pixels"}, {}) for name, src in PIXEL_AGENTS.items()},
 }
 
 
@@ -106,6 +118,51 @@ def agent_tree(state) -> dict:
     )
 
 
+def restore_pixel_agent(src: str):
+    """(step, JAX TrainState) of a shipped pixel agent's newest checkpoint."""
+    template = pixels.create_pixel_train_state(PixelActorCritic(), ppo.PPOConfig(),
+                                               jax.random.PRNGKey(0))
+    ck = Checkpointer(os.path.join(REPO, src, "checkpoints"))
+    step = ck.latest_step()
+    state = ck.restore(step, template)
+    ck.close()
+    return step, state
+
+
+def pixel_agent_tree(state) -> dict:
+    """The port's checkpoint tree of a restored JAX pixel TrainState.
+
+    The optax multi_transform state holds, per group, a MaskedState over
+    (the clip's EmptyState, (ScaleByAdamState, ScaleByScheduleState)); the
+    group's moments carry MaskedNode leaves where a parameter belongs to the
+    other group, which are dropped here by top-level name."""
+    adams = {}
+    for group, masked in state.opt_state.inner_states.items():
+        adam, schedule = masked.inner_state[1]
+        if int(adam.count) != int(schedule.count):
+            raise ValueError(f"{group}: adam count {int(adam.count)} != schedule count "
+                             f"{int(schedule.count)}")
+        policy = group == "policy"
+        adams[group] = {"count": np.asarray(adam.count), **{
+            m: np_tree({k: v for k, v in getattr(adam, m)["params"].items()
+                        if (k in convert.PIXEL_POLICY_TOPLEVEL) == policy})
+            for m in ("mu", "nu")}}
+    return convert.pixel_train_state_tree(
+        np_tree(state.params), adams,
+        {k: np.asarray(getattr(state, k))
+         for k in ("iteration", "train_step", "total_env_steps", "episodes_done")},
+        {k: np.asarray(getattr(state.reward_norm, k)) for k in ("mean", "var", "count")},
+    )
+
+
+def export_pixel_agent(out: str, name: str) -> None:
+    src = PIXEL_AGENTS[name]
+    step, state = restore_pixel_agent(src)
+    torch_checkpoint.Checkpointer(os.path.join(out, name, "checkpoints")).save(
+        step, pixel_agent_tree(state))
+    print(f"{src} step {step} -> {out}/{name}", flush=True)
+
+
 def vae_tree(name: str):
     """(step, the port's checkpoint tree) of a shipped VAE's newest step."""
     src = os.path.join(REPO, "vae", "models", name)
@@ -123,6 +180,8 @@ def export(out: str) -> None:
         torch_checkpoint.Checkpointer(os.path.join(out, name, "checkpoints")).save(
             step, agent_tree(state))
         print(f"{src} step {step} -> {out}/{name}", flush=True)
+    for name in COMMITTED_PIXEL_AGENTS:
+        export_pixel_agent(out, name)
     for name in VAES:
         step, tree = vae_tree(name)
         torch_checkpoint.Checkpointer(os.path.join(out, "vae_models", name, "checkpoints")).save(
@@ -173,17 +232,24 @@ def main(argv=None) -> None:
     parser.add_argument("--out", default=os.path.join(REPO, "models", "torch"))
     parser.add_argument("--reference_eval", type=int, default=0,
                         help="steps of the JAX greedy-eval reference (0: convert instead)")
-    parser.add_argument("--agent", default="latent_agent", choices=sorted(REFERENCES),
-                        help="the agent of --reference_eval")
+    parser.add_argument("--agent", default=None, choices=sorted(REFERENCES),
+                        help="the agent of --reference_eval (default latent_agent); without "
+                             "it, a pixel agent to convert alone")
     args = parser.parse_args(argv)
     if jax.default_backend() != "cpu":
         raise SystemExit("run on the CPU backend (JAX_PLATFORMS=cpu)")
     if args.reference_eval > 0:
+        agent = args.agent or "latent_agent"
         command = ("JAX_PLATFORMS=cpu python scripts/export_torch_checkpoints.py "
                    f"--reference_eval {args.reference_eval}")
-        if args.agent != "latent_agent":
-            command += f" --agent {args.agent}"
-        reference_eval(args.out, args.agent, args.reference_eval, command)
+        if agent != "latent_agent":
+            command += f" --agent {agent}"
+        reference_eval(args.out, agent, args.reference_eval, command)
+    elif args.agent is not None:
+        if args.agent not in PIXEL_AGENTS:
+            raise SystemExit(f"--agent {args.agent} alone converts a pixel agent "
+                             f"({', '.join(PIXEL_AGENTS)}); the others come with the default run")
+        export_pixel_agent(args.out, args.agent)
     else:
         export(args.out)
 

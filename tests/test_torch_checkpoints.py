@@ -8,7 +8,8 @@ are rebuilt here with numpy (the same ramp and linspace).
 
 Tolerances, stated before measuring: agents' mean / std / value within
 1e-5 relative (atol 1e-7, for the exact zeros and ones of a saturated
-tanh); the VAEs' z_prefix and z_sum within 1e-4 absolute and 1e-4 relative
+tanh), the pixel agents' too (their frame is the synthetic ramp, their
+measurements tests/checkpoint_goldens.py's MEASUREMENTS); the VAEs' z_prefix and z_sum within 1e-4 absolute and 1e-4 relative
 (four float32 convolutions and a 6144-wide head, summed in another order).
 """
 
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 from carla_ppo_tpu_torch.models import vae_common
+from carla_ppo_tpu_torch.models.pixel_policy import PixelActorCritic
 from carla_ppo_tpu_torch.models.policy import ActorCritic
 from carla_ppo_tpu_torch.ops.running_stats import RunningMoments
 from carla_ppo_tpu_torch.training import ppo
@@ -40,6 +42,8 @@ AGENTS = {  # golden key: converted directory
     "rgb_latent_agent": "rgb_latent",
     "traffic_agent": "traffic_agent",
 }
+PIXEL_AGENTS = {"pixel_turnkey_agent": "pixel_turnkey"}  # golden key: converted directory
+MEASUREMENTS = (0.1, 0.5, 5.0)  # steer, throttle, speed (tests/checkpoint_goldens.py)
 VAES = {
     "seg_vae": "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_data",
     "deprop_vae": "from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data",
@@ -81,6 +85,30 @@ def test_converted_agent_matches_golden(key):
         mean, std, value = model(obs)
     for got, exp in ((mean[0], want["mean"]), (std, want["std"]), (value[0], want["value"])):
         np.testing.assert_allclose(got.numpy(), np.asarray(exp, np.float32), rtol=1e-5, atol=1e-7)
+
+
+def pixel_golden_outputs(model: PixelActorCritic) -> tuple:
+    """(mean [A], std [A], value) of a pixel agent on the goldens' inputs."""
+    frame = torch.from_numpy(synthetic_frame(model.frame_shape))
+    with torch.no_grad():
+        mean, std, value = model.policy_value(frame, torch.tensor([MEASUREMENTS]))
+    return mean[0].numpy(), std.numpy(), value[0].numpy()
+
+
+@pytest.mark.parametrize("key", sorted(PIXEL_AGENTS))
+def test_converted_pixel_agent_matches_golden(key):
+    want = _goldens()[key]
+    ck = Checkpointer(TORCH_MODELS / PIXEL_AGENTS[key] / "checkpoints")
+    assert ck.latest_step() == want["step"]
+    tree = ck.read_tree(want["step"])
+    model = PixelActorCritic()
+    model.load_state_dict(tree["model"])
+    assert sum(p.numel() for p in model.parameters()) == 2_951_842
+    for got, exp in zip(pixel_golden_outputs(model), (want["mean"], want["std"], want["value"])):
+        np.testing.assert_allclose(got, np.asarray(exp, np.float32), rtol=1e-5, atol=1e-7)
+    for group in ("policy", "encoder"):  # the two optimizer groups, each with its own count
+        opt = tree["opt_state"][group]
+        assert set(opt["mu"]) == set(opt["nu"]) and int(opt["count"]) > 0
 
 
 @pytest.mark.parametrize("key", sorted(VAES))

@@ -6,7 +6,8 @@ default, type (by name, or by what it makes of the same strings) and
 choices (train_vae's --models_dir default differs on purpose). Values the
 port does not run yet raise NotImplementedError naming their ROADMAP item.
 Then tiny drives on the CPU: train -> resume -> run_eval; traffic and RGB
-training; collect_data -> train_vae -> load_vae.
+training; pixel training (warm start, de-prop target) -> run_eval --obs
+pixels; collect_data -> train_vae -> load_vae.
 """
 
 from __future__ import annotations
@@ -116,11 +117,10 @@ def test_train_defaults_build_the_jax_configs():
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--obs", "pixels"], "A8"),
     (["--num_devices", "2"], "A10"),
     (["--num_devices", "0"], "A10"),
     (["--record_eval", "1"], "A12"),
-])
+], ids=["argv1-A10", "argv2-A10", "argv3-A12"])  # argv0-A8 (--obs pixels) runs now: below
 def test_unported_values_raise(argv, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -202,6 +202,42 @@ def test_traffic_and_rgb_training_run_on_cpu(argv, tmp_path, monkeypatch):
         assert p.terminate_on_collision and tr.train_state.model.pi.dense[0].in_features == 24
     else:
         assert tr.latent_obs.source == "rgb" and tr.latent_obs.vae_model.source_shape == (80, 160, 3)
+
+
+def test_pixel_training_and_run_eval_on_cpu(tmp_path, monkeypatch, capsys):
+    """--obs pixels with --vae_scale, --warm_start_vae and --deprop_aux
+    reaches the Trainer: one iteration through cli.train (evals capped at 8
+    steps), then cli.run_eval --obs pixels of the result."""
+    from carla_ppo_tpu_torch.training import pixels
+
+    monkeypatch.chdir(tmp_path)
+
+    def capped(self, params):
+        return pixels.evaluate(self.train_state.model, params, self._eval_generator,
+                               num_envs=self.settings.eval_envs, max_steps=8, config=self.config,
+                               pix=self.pix, chunk=8)
+
+    monkeypatch.setattr(loop.Trainer, "_evaluate_on", capped)
+    t = {}
+    real_init = loop.Trainer.__init__
+
+    def keep(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        t["trainer"] = self
+
+    monkeypatch.setattr(loop.Trainer, "__init__", keep)
+    train.main(["--model_name", "px", "--device", "cpu", "--obs", "pixels", "--deprop_aux", "1",
+                "--vae_scale", "2e-4", "--warm_start_vae", DEPROP, "--num_envs", "4", "--horizon",
+                "4", "--num_minibatches", "2", "--num_epochs", "1", "--eval_interval", "1",
+                "--eval_envs", "2", "--num_episodes", "1"])
+    tr = t["trainer"]
+    assert tr.iteration == 1 and os.path.isfile("models/px/best_score.json")
+    assert (tr.pix.vae_scale, tr.pix.deprop_aux) == (2e-4, True)
+    assert "warm-started perception" in capsys.readouterr().out
+    metrics = run_eval.main(["--model_name", "px", "--device", "cpu", "--obs", "pixels",
+                             "--num_envs", "2", "--no_video", "--checkpoint", "latest"])
+    assert t["trainer"].obs_mode == "pixels"
+    assert metrics["eval/episode_steps"] <= 8 and np.isfinite(metrics["eval/reward"])
 
 
 def test_collect_data_then_train_vae_on_cpu(tmp_path, monkeypatch):

@@ -7,8 +7,10 @@ iteration and reports a scripted loss), so what is compared is the loop
 itself: best-checkpoint steps and best_score.json, the freeze flags, the
 best_key rankings, the NaN rollback (which checkpoint it restores, the
 counters) and the autosave stream. Then, on the port alone, a resume of a
-real (tiny) run and `restart`; and the route Trainer's three 64-route
-banks against the JAX Trainer's, field for field.
+real (tiny) run and `restart`, and of a pixel run (warm-started once,
+both Adam groups restored); and the route Trainer's three 64-route banks
+and the lap-bank Trainer's two 16-track banks against the JAX Trainer's,
+field for field.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from carla_ppo_tpu.training import loop as j_loop
 from carla_ppo_tpu.training import ppo as j_ppo
 from carla_ppo_tpu_torch.training import loop
 from carla_ppo_tpu_torch.training import ppo
-from tests.test_torch_common import np_tree
+from tests.test_torch_common import REPO, np_tree
 
 SMALL = dict(horizon=8, num_envs=4, num_minibatches=2)
 
@@ -237,3 +239,75 @@ def test_route_trainer_banks_match_jax(tmp_path):
                               tt._heldout_params["eval_heldout"].track.pos.numpy())
     jt.close()
     tt.close()
+
+
+def test_lap_bank_trainer_banks_match_jax(tmp_path):
+    """The lap-bank Trainer's training bank (seed 0) and held-out bank (seed
+    4097), 16 tracks each, props on: field for field against the JAX
+    Trainer's."""
+    j_settings = j_loop.TrainerSettings(model_name="j", models_root=str(tmp_path), eval_interval=0)
+    t_settings = loop.TrainerSettings(model_name="t", models_root=str(tmp_path), eval_interval=0)
+    jt = j_loop.Trainer(j_settings, j_ppo.PPOConfig(env_kind="lap_bank", **SMALL))
+    tt = loop.Trainer(t_settings, ppo.PPOConfig(env_kind="lap_bank", **SMALL), device="cpu")
+    assert sorted(jt._heldout_params) == sorted(tt._heldout_params) == ["eval_heldout"]
+    pairs = [(jt.env_params, tt.env_params), (jt._heldout_params["eval_heldout"],
+                                             tt._heldout_params["eval_heldout"])]
+    for jp, tp in pairs:
+        assert tp.track.num_tracks == 16
+        jf = _track_fields(jp.track)
+        for name in ("pos", "fwd", "maneuver", "left_width", "right_width", "length",
+                     "prop_class", "prop_lateral", "prop_height", "prop_halfwidth"):
+            got = getattr(tp.track, name)
+            np.testing.assert_array_equal(np.asarray(got.numpy() if torch.is_tensor(got) else got),
+                                          jf[name], err_msg=name)
+    assert not np.array_equal(tt.env_params.track.pos.numpy(),
+                              tt._heldout_params["eval_heldout"].track.pos.numpy())
+    jt.close()
+    tt.close()
+
+
+def test_pixel_trainer_warm_starts_once_and_resumes(tmp_path, monkeypatch, capsys):
+    """TrainerSettings(obs="pixels") at a tiny size (4 envs, horizon 4):
+    the first Trainer warm-starts from the converted de-prop VAE and trains
+    one iteration; a second resumes the autosave with both Adam groups'
+    counts and moments, does not warm-start again, and trains on."""
+    from carla_ppo_tpu_torch.models import vae_common
+    from carla_ppo_tpu_torch.training import pixels
+
+    vae_dir = REPO / "models" / "torch" / "vae_models" / (
+        "from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data")
+    settings = loop.TrainerSettings(
+        model_name="px", models_root=str(tmp_path), num_iterations=1, eval_interval=0,
+        checkpoint_interval=1, obs="pixels", warm_start_vae=str(vae_dir), deprop_aux=True,
+        policy_dtype="mixed")
+    config = ppo.PPOConfig(horizon=4, num_envs=4, num_minibatches=2)
+    warm = []
+    real = pixels.warm_start_from_vae
+    monkeypatch.setattr(pixels, "warm_start_from_vae", lambda *a: warm.append(1) or real(*a))
+    t1 = loop.Trainer(settings, config, device="cpu")
+    assert isinstance(t1.train_state, pixels.PixelTrainState) and t1.rollout_model() is None
+    vae = vae_common.load_vae(str(vae_dir), device="cpu")
+    assert torch.equal(t1.train_state.model.encoder.convs[0].weight, vae.encoder.convs[0].weight)
+    m = t1.train()
+    assert np.isfinite(m["train_loss/vae_recon"]) and np.isfinite(m["train_grad/encoder_norm"])
+    opt1 = t1.train_state.checkpoint_tree()["opt_state"]
+    w1 = t1.train_state.model.mean_head.weight.detach().clone()
+    t1.close()
+    assert warm == [1] and "warm-started perception" in capsys.readouterr().out
+    assert all(int(opt1[g]["count"]) == config.updates_per_iteration for g in pixels.GROUPS)
+
+    t2 = loop.Trainer(settings, config, device="cpu")
+    assert warm == [1] and t2.iteration == 1  # resumed, not warm-started again
+    assert torch.equal(t2.train_state.model.mean_head.weight, w1)
+    opt2 = t2.train_state.checkpoint_tree()["opt_state"]
+    for g in pixels.GROUPS:
+        assert int(opt2[g]["count"]) == int(opt1[g]["count"])
+        for k in ("mu", "nu"):
+            assert set(opt2[g][k]) == set(opt1[g][k])
+            for name in opt1[g][k]:
+                assert torch.equal(opt2[g][k][name], opt1[g][k][name]), (g, k, name)
+    t2.train(num_iterations=2)
+    assert t2.iteration == 2 and all(
+        int(t2.train_state.opt_state[g].count) == 2 * config.updates_per_iteration
+        for g in pixels.GROUPS)
+    t2.close()
