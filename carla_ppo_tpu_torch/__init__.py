@@ -14,7 +14,9 @@ Layout mirrors the JAX package:
   envs/      track baking, vehicle dynamics, rewards, the lap env
   models/    ConvVAE encoder, Gaussian actor-critic
   ops/       camera (plain PyTorch + CUDA kernels), GAE, running stats
-  training/  PPO rollout / update / greedy evaluate
+  training/  PPO rollout / update / greedy evaluate, the Trainer
+  parallel/  data-parallel PPO over torch.distributed (one rank per card)
+  cli/       train, run_eval, collect_data, train_vae
   utils/     device selection, kernel build, weight conversion
 
 Entry points default to ``device="cuda"`` and raise if no card is present;

@@ -4,9 +4,16 @@ The flags and defaults of carla_ppo_tpu/cli/train.py, plus `--device`
 (default "cuda"; "cpu" must be asked for). `--num_episodes` counts training
 iterations (one iteration = one rollout + update over the whole env batch).
 Values this port does not run yet raise NotImplementedError naming their
-ROADMAP item: `--num_devices` other than 1 (A10), `--record_eval 1` (A12).
-`--obs pixels` trains the pixel agent with the joint VAE (config 4); its
-model computes in float32 whatever `--policy_dtype` says.
+ROADMAP item: `--record_eval 1` (A12). `--obs pixels` trains the pixel
+agent with the joint VAE (config 4); its model computes in float32
+whatever `--policy_dtype` says.
+
+`--num_devices N` (N > 1; <= 0: every visible card) trains data parallel,
+one rank per card (training/loop.py, parallel/): the command spawns the N
+ranks itself and they meet on a localhost port, NCCL between cards, gloo
+with `--device cpu` or where there are more ranks than cards. Under
+torchrun (WORLD_SIZE in the environment) the command is one rank of the
+launcher's group instead.
 
 Examples:
   python -m carla_ppo_tpu_torch.cli.train --model_name lap_v0 --num_episodes 200
@@ -19,6 +26,8 @@ Examples:
   python -m carla_ppo_tpu_torch.cli.train --model_name pixel_turnkey --obs pixels --deprop_aux 1 \\
       --learning_rate 3e-4 --kl_target 0.015 --freeze_on_solve 2 \\
       --warm_start_vae models/torch/vae_models/from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data
+  python -m carla_ppo_tpu_torch.cli.train --model_name lap_dp --num_devices 4
+  torchrun --nproc_per_node 4 -m carla_ppo_tpu_torch.cli.train --model_name lap_dp --num_devices 4
 """
 
 from __future__ import annotations
@@ -27,8 +36,11 @@ import argparse
 import os
 import sys
 
+import torch
+
+from carla_ppo_tpu_torch.parallel import mesh
 from carla_ppo_tpu_torch.training import ppo
-from carla_ppo_tpu_torch.training.loop import Trainer, TrainerSettings
+from carla_ppo_tpu_torch.training.loop import Trainer, TrainerSettings, check_ported, world_size_for
 
 
 def bool_flag(v: str) -> bool:
@@ -226,8 +238,8 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["lap", "route", "lap_bank"])
     parser.add_argument("--num_envs", type=int, default=1024)
     parser.add_argument("--num_devices", type=int, default=1,
-                        help="Data-parallel device count (shard_map over a "
-                             "1-D mesh); <= 0 uses all attached devices")
+                        help="Data-parallel ranks, one per card (spawned by "
+                             "this command); <= 0 uses every visible card")
     parser.add_argument("--num_tracks", type=int, default=16,
                         help="lap_bank: domain-randomized tracks in the bank")
     parser.add_argument("--rich_scene", type=bool_flag, default=True,
@@ -286,6 +298,15 @@ def main(argv=None) -> None:
     device = params.pop("device")
     params.pop("start_carla", None)
     params.pop("synchronous", None)
+    config, settings = build_configs(params)
+
+    if "WORLD_SIZE" in os.environ:  # one rank of a torchrun group
+        world = int(os.environ["WORLD_SIZE"])
+        dp = mesh.init_from_env(device, _backend(device, world))
+        if dp.is_main:
+            _print_params(params)
+        _run_rank(config, settings, restart, device, dp)
+        return
 
     # Interactive continue/restart on an existing model dir (reference:
     # train.py:97-105 asks before appending to existing logs). Only when a
@@ -302,10 +323,61 @@ def main(argv=None) -> None:
         elif answer.startswith("a"):
             sys.exit(0)
 
+    _print_params(params)
+    world = world_size_for(settings, torch.device(device), None)
+    if world <= 1:
+        _train(config, settings, restart, device, None)
+        return
+    # Refuse before spawning anything.
+    check_ported(settings, config)
+    if config.num_envs % world:
+        raise ValueError(f"num_envs={config.num_envs} not divisible by num_devices={world}")
+    init_method = f"tcp://127.0.0.1:{mesh.free_port()}"
+    torch.multiprocessing.start_processes(
+        _spawned_rank, args=(world, init_method, config, settings, restart, device), nprocs=world,
+        start_method="spawn")
+
+
+def _print_params(params: dict) -> None:
     print("Training parameters:")
     for k, v in params.items():
         print(f"  {k}: {v}")
 
+
+def _backend(device: str, world_size: int) -> str | None:
+    """gloo where ranks share a card (NCCL refuses that), else the default."""
+    if torch.device(device).type == "cuda" and world_size > torch.cuda.device_count():
+        return "gloo"
+    return None
+
+
+def _spawned_rank(rank: int, world_size: int, init_method: str, config, settings, restart: bool,
+                  device: str) -> None:
+    dp = mesh.init(rank, world_size, init_method, device, _backend(device, world_size))
+    _run_rank(config, settings, restart, device, dp)
+
+
+def _run_rank(config, settings, restart: bool, device: str, dp: mesh.DataParallel) -> None:
+    try:
+        _train(config, settings, restart, device, dp)
+    finally:
+        mesh.destroy()
+
+
+def _train(config, settings, restart: bool, device: str, dp) -> None:
+    trainer = Trainer(settings, config, restart=restart, device=device, dp=dp)
+    try:
+        final = trainer.train()
+        if trainer.is_main:
+            print("Final metrics:")
+            for k, v in sorted(final.items()):
+                print(f"  {k}: {v:.4f}")
+    finally:
+        trainer.close()
+
+
+def build_configs(params: dict):
+    """(PPOConfig, TrainerSettings) from the parsed flags."""
     config = ppo.PPOConfig(
         learning_rate=params["learning_rate"],
         lr_decay=params["lr_decay"],
@@ -374,14 +446,7 @@ def main(argv=None) -> None:
         policy_dtype=params["policy_dtype"],
     )
 
-    trainer = Trainer(settings, config, restart=restart, device=device)
-    try:
-        final = trainer.train()
-        print("Final metrics:")
-        for k, v in sorted(final.items()):
-            print(f"  {k}: {v:.4f}")
-    finally:
-        trainer.close()
+    return config, settings
 
 
 if __name__ == "__main__":

@@ -46,7 +46,7 @@ def route_env_params(bank: TrackData, max_distance: float = 3000.0, **overrides)
     return EnvParams(track=bank, **defaults)
 
 
-def _draw_routes(bank: TrackData, batch: int, generator: torch.Generator) -> Tensor:
+def draw_routes(bank: TrackData, batch: int, generator: torch.Generator) -> Tensor:
     return torch.randint(0, bank.num_tracks, (batch,), generator=generator,
                          device=bank.device, dtype=torch.int32)
 
@@ -114,7 +114,7 @@ def reset(
     if batch is None:
         batch = is_training.shape[0]
     is_training = lap_env._as_batch(is_training, batch, torch.bool, dev)
-    route_id = _draw_routes(bank, batch, generator)
+    route_id = draw_routes(bank, batch, generator)
     start_idx = torch.zeros(batch, dtype=torch.int32, device=dev)
     if params.junction_spawn_prob > 0:
         u_bias = torch.rand(batch, generator=generator, device=dev)
@@ -165,7 +165,7 @@ def step(
     obs_fn: str | None = "vector",
 ) -> Tuple[EnvState, StepOutput]:
     """One tick, chaining a random new route where one was finished."""
-    new_route_id = _draw_routes(params.track, state.batch_size, generator)
+    new_route_id = draw_routes(params.track, state.batch_size, generator)
     return step_with_routes(state, action, params, new_route_id, obs_fn)
 
 

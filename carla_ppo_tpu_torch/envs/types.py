@@ -175,7 +175,13 @@ class EnvParams:
     """Environment configuration + baked track data.
 
     NPC traffic (`num_npcs` > 0 live slots of NUM_NPC_SLOTS) is ticked in
-    lap_env.step; see the JAX EnvParams for what each NPC knob does."""
+    lap_env.step; see the JAX EnvParams for what each NPC knob does.
+
+    Traffic lights (envs/traffic_lights.py) are a table on the track's
+    device: each light's waypoint `light_wp` [L] int32 and phase offset
+    `light_phase` [L] float32 (s), sharing one green -> yellow -> red cycle
+    of `light_period` s. The default empty table means no lights anywhere
+    (the RL configs); only the scripted agents read it."""
 
     track: TrackData
     vehicle: VehicleParams = VehicleParams()
@@ -203,6 +209,12 @@ class EnvParams:
     npc_wander_rate: float = 1.5
     npc_keep_lat: float = 0.0  # lane-keeping spring home (m)
     npc_keep_gain: float = 0.0  # and rate (1/s); 0 = free wander
+    light_wp: Tensor = dataclasses.field(default_factory=lambda: torch.zeros(0, dtype=torch.int32))
+    light_phase: Tensor = dataclasses.field(
+        default_factory=lambda: torch.zeros(0, dtype=torch.float32))
+    light_period: float = 16.0
+    light_green_frac: float = 0.5
+    light_yellow_frac: float = 0.125
     physics_substeps: int = 2
     reward_fn: str = "reward_speed_centering_angle_multiply"
     dynamics_model: str = "kinematic"

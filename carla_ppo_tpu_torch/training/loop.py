@@ -11,10 +11,22 @@ continues the numbering.
 Ported: `obs` "vector" (and `obs_fn` "vector_npc"), "latent" (seg or rgb
 `vae_source`) and "pixels" (the pixel agent trained with the joint VAE,
 training/pixels.py, warm-started from a VAE on fresh runs), `env_kind`
-"lap", "route" and "lap_bank", NPC traffic on the lap env, on one device.
-The rest raises NotImplementedError naming the ROADMAP queue-A item that
-brings it. `Trainer(..., device=)` is the one addition: the port runs on
-the card unless the caller asks for the CPU.
+"lap", "route" and "lap_bank", NPC traffic on the lap env, on one device
+or data parallel over `num_devices` ranks (parallel/train_dp.py). The rest
+raises NotImplementedError naming the ROADMAP queue-A item that brings it.
+`Trainer(..., device=, dp=)` are the additions: the port runs on the card
+unless the caller asks for the CPU, and a data-parallel Trainer is one
+rank of a process group that the caller set up (cli.train spawns the
+ranks, or joins torchrun's group) and passes as `dp`.
+
+Under data parallel every rank builds the same Trainer and holds its slice
+of the env batch; rank 0's state is broadcast at the start, after a
+restore and after a NaN rollback (train_dp.replicate). Rank 0 alone
+writes checkpoints, best_score.json and metrics and prints; the others wait
+at a barrier after each save. The greedy eval is data parallel when
+`eval_envs` divides over the ranks, else rank 0 runs it alone and the
+others take its metrics, so every rank makes the same best-checkpoint and
+freeze decisions.
 """
 
 from __future__ import annotations
@@ -35,6 +47,8 @@ from carla_ppo_tpu_torch.envs.types import EnvParams
 from carla_ppo_tpu_torch.models import vae_common
 from carla_ppo_tpu_torch.models.pixel_policy import PixelActorCritic
 from carla_ppo_tpu_torch.models.policy import ActorCritic
+from carla_ppo_tpu_torch.parallel import train_dp
+from carla_ppo_tpu_torch.parallel.mesh import DataParallel
 from carla_ppo_tpu_torch.training import pixels, ppo
 from carla_ppo_tpu_torch.utils.checkpoint import Checkpointer
 from carla_ppo_tpu_torch.utils.device import exact_float32, make_generator, resolve_device
@@ -60,7 +74,7 @@ class TrainerSettings:
     checkpoint_interval: int = 25  # autosave period (iterations)
     seed: int = 0
     track_seed: int = 0
-    num_devices: int = 1  # data parallel (ROADMAP A10): only 1 here
+    num_devices: int = 1  # data-parallel ranks; <= 0: every visible card
     num_tracks: int = 16  # lap_bank circuits
     rich_scene: bool = True  # roadside props (cameras only)
     num_npcs: int = 0
@@ -106,13 +120,8 @@ class TrainerSettings:
 
 def check_ported(settings: TrainerSettings, config: ppo.PPOConfig) -> None:
     """Raise NotImplementedError for what this port does not run yet."""
-    unported = [
-        (settings.num_devices != 1, f"num_devices={settings.num_devices} (multi-GPU)", "A10"),
-        (settings.record_eval, "record_eval (eval videos)", "A12"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+    if settings.record_eval:
+        raise NotImplementedError("record_eval (eval videos) is not ported yet (ROADMAP A12)")
     if settings.policy_dtype not in POLICY_DTYPES:
         raise ValueError(f"unknown policy_dtype {settings.policy_dtype!r}")
 
@@ -123,6 +132,16 @@ def reseeded_generator(seed: int, iteration: int, device: torch.device) -> torch
     streams differ; only the rule (a new stream per rollback) is the same."""
     state = np.random.SeedSequence([int(seed), int(iteration)]).generate_state(2, np.uint32)
     return make_generator(int(state[0]) << 32 | int(state[1]), device)
+
+
+def world_size_for(settings: TrainerSettings, device: torch.device, dp: Optional[DataParallel]) -> int:
+    """The ranks `settings.num_devices` asks for: <= 0 means every visible
+    card (the group's size where one is given, one rank on the CPU)."""
+    if settings.num_devices > 0:
+        return settings.num_devices
+    if dp is not None:
+        return dp.world_size
+    return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
 def _cloned(tree: Any) -> Any:
@@ -139,16 +158,32 @@ class Trainer:
         restart: bool = False,
         env_params: Optional[EnvParams] = None,
         device: str | torch.device = "cuda",
+        dp: Optional[DataParallel] = None,
     ):
         check_ported(settings, config)
         self.settings = settings
         self.config = config
-        self.device = dev = resolve_device(device)
+        n_dev = world_size_for(settings, resolve_device(device if dp is None else dp.device), dp)
+        if n_dev > 1:
+            if config.num_envs % n_dev:
+                raise ValueError(f"num_envs={config.num_envs} not divisible by num_devices={n_dev}")
+            if dp is None or dp.world_size != n_dev:
+                raise RuntimeError(
+                    f"num_devices={n_dev} needs a process group of {n_dev} ranks, one Trainer per "
+                    "rank: start them with `python -m carla_ppo_tpu_torch.cli.train --num_devices "
+                    f"{n_dev} ...` (it spawns the ranks) or `torchrun --nproc_per_node {n_dev} -m "
+                    "carla_ppo_tpu_torch.cli.train ...`, or pass dp=parallel.mesh.init(...)")
+        elif dp is not None and dp.world_size > 1:
+            raise ValueError(f"a group of {dp.world_size} ranks but num_devices={n_dev}")
+        self.dp = dp if n_dev > 1 else None
+        self.is_main = self.dp is None or self.dp.is_main
+        self.device = dev = resolve_device(device) if self.dp is None else self.dp.device
         exact_float32()
 
         self.model_dir = os.path.join(settings.models_root, settings.model_name)
-        if restart and os.path.isdir(self.model_dir):
+        if restart and self.is_main and os.path.isdir(self.model_dir):
             shutil.rmtree(self.model_dir)
+        self._barrier()
         self.checkpoint_dir = os.path.join(self.model_dir, "checkpoints")
         self.log_dir = os.path.join(self.model_dir, "logs")
         self.video_dir = os.path.join(self.model_dir, "videos")
@@ -269,8 +304,7 @@ class Trainer:
                                 compute_dtype=POLICY_DTYPES[settings.policy_dtype])
         create = pixels.create_pixel_train_state if self.pix is not None else ppo.create_train_state
         self.train_state = create(model.to(dev), config, make_generator(settings.seed, dev))
-        self.env_states = ppo.init_env_batch(
-            self.env_params, config.num_envs, self.train_state.generator, env_kind=config.env_kind)
+        self.env_states = self._init_envs(self.train_state.generator)
 
         # Two checkpoint streams: `checkpoints/` holds best-eval models only,
         # `autosave/` periodic crash-recovery snapshots. Separate managers,
@@ -284,12 +318,19 @@ class Trainer:
                 restored = candidate
         if restored is not None:
             self.train_state = restored
+            self._print(f"resumed at iteration {restored.iteration} from {self.model_dir}")
         elif self.obs_mode == "pixels" and settings.warm_start_vae:
             pixels.warm_start_from_vae(self.train_state.model,
                                        vae_common.load_vae(settings.warm_start_vae, device=dev))
-            print(f"warm-started perception from {settings.warm_start_vae}", flush=True)
+            self._print(f"warm-started perception from {settings.warm_start_vae}")
+        if self.dp is not None:
+            train_dp.replicate(self.train_state, self.dp)
+            make = (train_dp.make_dp_pixel_train_iteration if self.pix is not None
+                    else train_dp.make_dp_train_iteration)
+            extra = dict(pix=self.pix) if self.pix is not None else dict(latent_obs=self.latent_obs)
+            self._dp_iteration = make(self.dp, config, self.env_params, **extra)
 
-        self.writer = MetricsWriter(self.log_dir)
+        self.writer = MetricsWriter(self.log_dir, enabled=self.is_main)
         hparams = {**dataclasses.asdict(settings), **dataclasses.asdict(config)}
         self.writer.write_hparams(hparams)
 
@@ -305,11 +346,10 @@ class Trainer:
                 if len(loaded) == score_len:
                     self.best_eval_score = loaded
                 else:
-                    print(
+                    self._print(
                         f"best_score.json has {len(loaded)} components but "
                         f"best_key={settings.best_key!r} ranks by {score_len};"
-                        " starting the best-checkpoint bar fresh",
-                        flush=True,
+                        " starting the best-checkpoint bar fresh"
                     )
             except (ValueError, OSError):
                 pass
@@ -334,6 +374,27 @@ class Trainer:
     def iteration(self) -> int:
         return int(self.train_state.iteration)
 
+    def _print(self, msg: str) -> None:
+        if self.is_main:
+            print(msg, flush=True)
+
+    def _barrier(self) -> None:
+        if self.dp is not None:
+            self.dp.barrier()
+
+    def _save(self, checkpointer: Checkpointer, step: int) -> None:
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        if self.is_main:
+            checkpointer.save(step, self.train_state)
+        self._barrier()
+
+    def _init_envs(self, generator: torch.Generator):
+        """Fresh training envs: the whole batch from `generator` (drawn
+        alike on every rank), then this rank's slice under data parallel."""
+        envs = ppo.init_env_batch(self.env_params, self.config.num_envs, generator,
+                                  env_kind=self.config.env_kind)
+        return envs if self.dp is None else train_dp.shard_env_batch(envs, self.dp)
+
     def rollout_model(self) -> Optional[ActorCritic]:
         """The behaviour policy of the "mixed" recipe (a bfloat16 twin of
         the current model), else None."""
@@ -341,7 +402,15 @@ class Trainer:
             return None
         return self.train_state.model.with_compute_dtype(self._rollout_dtype)
 
-    def _evaluate_on(self, params: EnvParams) -> Dict[str, torch.Tensor]:
+    def _evaluate_on(self, params: EnvParams, data_parallel: bool = False) -> Dict[str, torch.Tensor]:
+        if data_parallel:
+            kw = dict(model=self.train_state.model, config=self.config, env_params=params,
+                      num_envs=self.settings.eval_envs)
+            if self.obs_mode == "pixels":
+                fn = train_dp.make_dp_pixel_evaluate(self.dp, pix=self.pix, **kw)
+            else:
+                fn = train_dp.make_dp_evaluate(self.dp, latent_obs=self.latent_obs, **kw)
+            return fn(self._eval_generator, self.settings.eval_max_steps)
         if self.obs_mode == "pixels":
             return pixels.evaluate(
                 self.train_state.model, params, self._eval_generator,
@@ -357,8 +426,21 @@ class Trainer:
     def evaluate(self) -> Dict[str, float]:
         """Greedy eval on the training world, and every `heldout_eval`-th
         time also on the held-out worlds (route / lap_bank); array metrics
-        are flattened to one scalar per element (`eval/laps_per_track/i`)."""
-        metrics = self._evaluate_on(self.env_params)
+        are flattened to one scalar per element (`eval/laps_per_track/i`).
+        Under data parallel every rank returns the same metrics: the eval
+        is data parallel when `eval_envs` divides over the ranks, else rank
+        0 runs it on its device alone and the others take its metrics."""
+        if self.dp is not None and self.settings.eval_envs % self.dp.world_size:
+            return self.dp.broadcast_object(self._evaluate(False) if self.is_main else None)
+        return self._evaluate(self.dp is not None)
+
+    def _evaluate(self, data_parallel: bool) -> Dict[str, float]:
+        def on(params):
+            if data_parallel:
+                return self._evaluate_on(params, data_parallel=True)
+            return self._evaluate_on(params)
+
+        metrics = on(self.env_params)
         self._eval_count += 1
         if (
             self._heldout_params
@@ -366,7 +448,7 @@ class Trainer:
             and self._eval_count % self.settings.heldout_eval == 0
         ):
             for prefix, hp in self._heldout_params.items():
-                hm = self._evaluate_on(hp)
+                hm = on(hp)
                 metrics.update({k.replace("eval/", prefix + "/"): v for k, v in hm.items()})
         flat: Dict[str, float] = {}
         for k, v in metrics.items():
@@ -398,12 +480,12 @@ class Trainer:
         self._solve_streak = self._solve_streak + 1 if solved else 0
         should = self._solve_streak >= self.settings.freeze_on_solve
         if should and not self._frozen:
-            print(f"Iteration {it}: task solved for {self._solve_streak} consecutive evals - "
-                  "freezing updates (rollout/eval continue)", flush=True)
+            self._print(f"Iteration {it}: task solved for {self._solve_streak} consecutive evals - "
+                        "freezing updates (rollout/eval continue)")
         elif self._frozen and not should:
             bar = (f"{self.settings.solve_distance} m" if self._solve_metric == "distance"
                    else f"{self.settings.solve_laps} laps")
-            print(f"Iteration {it}: eval fell below {bar} - unfreezing", flush=True)
+            self._print(f"Iteration {it}: eval fell below {bar} - unfreezing")
         self._frozen = should
 
     def _eval_and_checkpoint(self, it: int) -> None:
@@ -411,19 +493,19 @@ class Trainer:
         if self._watchdog is not None:
             self._watchdog.beat()  # evals can legitimately take long
         self.writer.write_scalars(eval_metrics, it)
-        print(
+        self._print(
             f"Iteration {it} (step {int(self.train_state.train_step)}): "
             f"eval reward {eval_metrics['eval/reward']:.1f}, "
             f"distance {eval_metrics['eval/distance_traveled']:.0f} m, "
-            f"laps {eval_metrics['eval/laps_completed']:.2f}",
-            flush=True,
+            f"laps {eval_metrics['eval/laps_completed']:.2f}"
         )
         eval_score = self._eval_score(eval_metrics)
         if eval_score > self.best_eval_score:
             self.best_eval_score = eval_score
-            self.checkpointer.save(it, self.train_state)  # best-only
-            with open(self._best_score_path, "w") as f:
-                json.dump(list(eval_score), f)
+            if self.is_main:
+                with open(self._best_score_path, "w") as f:
+                    json.dump(list(eval_score), f)
+            self._save(self.checkpointer, it)  # best-only
         if self.settings.freeze_on_solve > 0:
             self._update_freeze(it, eval_metrics)
 
@@ -445,7 +527,11 @@ class Trainer:
             # train_iteration updates the model in place; this copy is what a
             # rollback returns to when no checkpoint exists yet.
             before = _cloned(self.train_state.checkpoint_tree())
-            if self.obs_mode == "pixels":
+            if self.dp is not None:
+                kw = {} if self.pix is not None else dict(rollout_model=self.rollout_model())
+                new_state, new_envs, m = self._dp_iteration(self.train_state, self.env_states,
+                                                            freeze, **kw)
+            elif self.obs_mode == "pixels":
                 new_state, new_envs, m = pixels.pixel_train_iteration(
                     self.train_state, self.env_states, self.env_params, self.config, self.pix,
                     freeze=freeze)
@@ -464,17 +550,18 @@ class Trainer:
             if not np.isfinite(metrics["train_loss/loss"]):
                 self._nan_events += 1
                 self.writer.write_scalar("train/nan_events", self._nan_events, it)
-                print(f"Iteration {it}: non-finite loss detected; rolling back "
-                      f"({self._nan_events} events)", flush=True)
+                self._print(f"Iteration {it}: non-finite loss detected; rolling back "
+                            f"({self._nan_events} events)")
                 restored = (self.autosaver.restore_latest(new_state)
                             or self.checkpointer.restore_latest(new_state)
                             or new_state.restored(before))
                 restored.generator = reseeded_generator(self.settings.seed, it, self.device)
+                restored.shared_generator = None
                 restored.iteration = it + 1
                 self.train_state = restored
-                self.env_states = ppo.init_env_batch(
-                    self.env_params, self.config.num_envs, restored.generator,
-                    env_kind=self.config.env_kind)
+                self.env_states = self._init_envs(restored.generator)
+                if self.dp is not None:
+                    train_dp.replicate(self.train_state, self.dp)
                 continue
 
             self.train_state, self.env_states = new_state, new_envs
@@ -483,7 +570,7 @@ class Trainer:
                 self.settings.checkpoint_interval > 0
                 and (it + 1) % self.settings.checkpoint_interval == 0
             ):
-                self.autosaver.save(it + 1, self.train_state)
+                self._save(self.autosaver, it + 1)
         self.writer.flush()
         return metrics
 

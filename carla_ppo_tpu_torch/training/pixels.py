@@ -17,9 +17,12 @@ stepped by its own Adam on the shared learning-rate schedule
 (ppo.clip_and_adam). The KL guard, the advantage-SNR gate and the
 solve-aware freeze select over both groups at once, branch-free.
 
-Randomness comes from the train state's torch.Generator: the rollout's
-action noise, each epoch's permutation and each minibatch's z noise. The
-parity tests inject the JAX package's draws (`noise`, `perms`, `noises`).
+Randomness comes from the train state's torch.Generators: the rollout's
+action noise from `generator`, each epoch's permutation and each
+minibatch's z noise from `update_generator` (the same on every rank under
+data parallel, `dp`, where the update averages both groups' gradients
+over the ranks before their clips, as training/ppo.py does). The parity
+tests inject the JAX package's draws (`noise`, `perms`, `noises`).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from carla_ppo_tpu_torch.models.policy import gaussian_entropy, gaussian_log_pro
 from carla_ppo_tpu_torch.models.vae import VAE, vae_loss
 from carla_ppo_tpu_torch.ops import gae, rasterizer
 from carla_ppo_tpu_torch.ops.running_stats import RunningMoments
+from carla_ppo_tpu_torch.parallel.mesh import DataParallel
 from carla_ppo_tpu_torch.training import ppo
 from carla_ppo_tpu_torch.training.ppo import AdamState, PPOConfig
 
@@ -241,20 +245,22 @@ def pixel_update(
     freeze: Tensor | None = None,
     perms: Sequence[Tensor] | None = None,
     noises: Sequence[Tensor] | None = None,
+    dp: DataParallel | None = None,
 ) -> Dict[str, Tensor]:
     """GAE + the epochs of minibatch updates of both groups, applied to
     train_state in place; returns the metrics averaged over the updates.
     `perms` (one per epoch) and `noises` (one [minibatch, z_dim] draw per
-    update, in update order) replace the generator's draws."""
+    update, in update order) replace the update generator's draws. Under
+    `dp`, `traj` is this rank's slice."""
     model = train_state.model
     advantages = gae.compute_gae(traj.rewards, traj.values, bootstrap, traj.dones,
                                  config.discount_factor, config.gae_lambda)
     returns = advantages + traj.values
-    adv_snr, stop = ppo.adv_snr_gate(advantages, returns, config)
+    adv_snr, stop = ppo.adv_snr_gate(advantages, returns, config, dp)
     if freeze is not None:
         stop = stop | freeze
     if config.normalize_advantage:
-        advantages = gae.normalize_advantages(advantages)
+        advantages = ppo.normalize_advantages(advantages, dp)
 
     T, B = traj.rewards.shape
     fields = {"frames": traj.frames, "measurements": traj.measurements, "actions": traj.actions,
@@ -282,22 +288,25 @@ def pixel_update(
     update = 0
     for epoch in range(config.num_epochs):
         perm = perms[epoch] if perms is not None else torch.randperm(
-            perm_size, generator=train_state.generator, device=bootstrap.device)
+            perm_size, generator=train_state.update_generator, device=bootstrap.device)
         for idx in perm.reshape(config.num_minibatches, -1):
             if env_axis:
                 batch = {k: v[idx].reshape((-1,) + tuple(v.shape[2:])) for k, v in data.items()}
             else:
                 batch = {k: v[idx] for k, v in data.items()}
-            noise = noises[update] if noises is not None else train_state.generator
+            noise = noises[update] if noises is not None else train_state.update_generator
             update += 1
             for p in model.parameters():
                 p.grad = None
             loss, metrics = pixel_loss(model, batch, config, pix, noise, ent_scale)
             loss.backward()
             del loss, batch
+            flat = [p.grad if p.grad is not None else torch.zeros_like(p) for p in model.parameters()]
+            flat, metrics = ppo.reduce_grads_and_metrics(flat, metrics, dp)
+            grads_of = dict(zip(model.parameters(), flat))
             new_params, new_opt = {}, {}
             for g, params in groups.items():
-                grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+                grads = [grads_of[p] for p in params]
                 metrics[f"train_grad/{g}_norm"] = ppo.global_norm(grads).detach()
                 new_params[g], new_opt[g] = ppo.clip_and_adam(params, grads, opt[g], config,
                                                               clip_norm=pix.clip_norm(g))
@@ -331,15 +340,17 @@ def pixel_train_iteration(
     config: PPOConfig,
     pix: PixelConfig = PixelConfig(),
     freeze: Tensor | None = None,
+    dp: DataParallel | None = None,
 ) -> Tuple[PixelTrainState, EnvState, Dict[str, Tensor]]:
     """One pixel-PPO iteration: rollout -> GAE -> epochs of joint updates;
     updates train_state in place and returns (train_state, env_states,
     metrics). Rewards are used as they come (the JAX pixel iteration does
-    not normalise them)."""
+    not normalise them). Under `dp`, `env_states` is this rank's slice."""
     env_states, traj, bootstrap, episodic = pixel_rollout(
         train_state.model, env_states, env_params, train_state.generator, config, pix)
-    metrics = pixel_update(train_state, traj, bootstrap, config, pix, freeze=freeze)
-    ppo.finish_iteration(train_state, metrics, episodic, config, traj.rewards.numel())
+    metrics = pixel_update(train_state, traj, bootstrap, config, pix, freeze=freeze, dp=dp)
+    episodic, env_steps = ppo.reduce_episodic(episodic, traj.rewards.numel(), dp)
+    ppo.finish_iteration(train_state, metrics, episodic, config, env_steps)
     return train_state, env_states, metrics
 
 
@@ -394,6 +405,13 @@ def evaluate(
     """Greedy evaluation of a pixel agent: ppo.evaluate's loop and metric
     set (lap-bank evals round-robin over the bank), acting on the action
     mean from the rendered frame and the measurements."""
+    return ppo.greedy_episodes(*greedy_policy(model, env_params, pix), env_params, generator,
+                               num_envs, max_steps, config, chunk)
+
+
+def greedy_policy(model: PixelActorCritic, env_params: EnvParams, pix: PixelConfig):
+    """(act_mean, observe, step_obs) of `evaluate` for ppo.greedy_episodes
+    / greedy_snaps."""
 
     def observe(states: EnvState, out) -> Tuple[Tensor, Tensor]:
         rich, _, m = render_and_measure(states, env_params, pix.cam)
@@ -402,5 +420,4 @@ def evaluate(
     def act_mean(obs: Tuple[Tensor, Tensor]) -> Tensor:
         return model.policy_value(frames_input(obs[0]), obs[1])[0]
 
-    return ppo.greedy_episodes(act_mean, observe, env_params, generator, num_envs, max_steps,
-                               config, chunk)
+    return act_mean, observe, None

@@ -16,6 +16,17 @@ bias correction, and the learning rate is a function of the optimizer's
 update count. The KL guard and the advantage-SNR / freeze gates keep the
 old parameters and optimizer state branch-free (torch.where), like the JAX
 package, so nothing waits on the card mid-iteration.
+
+Data parallel (`dp`, a parallel.mesh.DataParallel; None is the
+single-device path): each rank rolls out its own slice of the env batch
+from its own generator, and the update does what the JAX package's
+train_iteration_core(axis_name=) does: advantages normalised (and the
+SNR gate taken) by the global moments, gradients and minibatch metrics
+averaged over the ranks before the clip and Adam, the reward moments
+averaged after each rank's own update, the episodic metrics averaged.
+Every rank then applies the same update to the same parameters, and the
+minibatch permutations come from `TrainState.shared_generator`, which all
+ranks draw alike.
 """
 
 from __future__ import annotations
@@ -28,10 +39,12 @@ import torch
 from torch import Tensor
 
 from carla_ppo_tpu_torch.envs import lap_bank_env, lap_env, route_env
-from carla_ppo_tpu_torch.envs.types import EnvParams, EnvState, TerminationReason
+from carla_ppo_tpu_torch.envs.types import EnvParams, EnvState, TerminationReason, map_tensors
 from carla_ppo_tpu_torch.models.policy import ActorCritic, gaussian_entropy, gaussian_log_prob
 from carla_ppo_tpu_torch.ops import gae
 from carla_ppo_tpu_torch.ops.running_stats import RunningMoments, normalize_rewards
+from carla_ppo_tpu_torch.parallel.mesh import DataParallel
+from carla_ppo_tpu_torch.utils.device import derived_generator
 
 
 ENV_KINDS = {"lap": lap_env, "route": route_env, "lap_bank": lap_bank_env}
@@ -205,6 +218,16 @@ def adam_from_tree(tree: Dict[str, Any], names: Sequence[str], device: torch.dev
 
 @dataclasses.dataclass
 class TrainState:
+    """Model, optimizer state, counters, reward moments and random streams.
+
+    `generator` drives the rollout (action noise, resets). The minibatch
+    permutations (and the pixel path's z noise) come from
+    `shared_generator` when it is set, else from `generator`: the
+    single-device path draws everything from one stream, while data
+    parallel gives every rank the same shared stream and its own rollout
+    stream (rank 0's is the one a single device would have;
+    parallel/train_dp.replicate)."""
+
     model: ActorCritic
     opt_state: AdamState
     iteration: int
@@ -213,6 +236,12 @@ class TrainState:
     episodes_done: int
     generator: torch.Generator
     reward_norm: RunningMoments
+    shared_generator: torch.Generator | None = None
+
+    @property
+    def update_generator(self) -> torch.Generator:
+        """The stream of the update's draws (permutations, z noise)."""
+        return self.shared_generator if self.shared_generator is not None else self.generator
 
     def opt_tree(self) -> Dict[str, Any]:
         """The Adam state as saved: count, and the moments keyed by
@@ -227,8 +256,10 @@ class TrainState:
     def checkpoint_tree(self) -> Dict[str, Any]:
         """What utils.checkpoint saves: the model's state_dict, the Adam
         moments keyed by parameter name, the counters, the reward moments
-        and the generator's state."""
-        return {
+        and the generators' states (the shared one where it is set; under
+        data parallel, rank 0 saves, so `generator` is rank 0's rollout
+        stream)."""
+        tree = {
             "model": self.model.state_dict(),
             "opt_state": self.opt_tree(),
             "iteration": int(self.iteration),
@@ -239,6 +270,9 @@ class TrainState:
             "generator": self.generator.get_state(),
             "generator_device": self.generator.device.type,
         }
+        if self.shared_generator is not None:
+            tree["shared_generator"] = self.shared_generator.get_state()
+        return tree
 
     def restored(self, tree: Dict[str, Any]) -> "TrainState":
         """A new TrainState from a checkpoint tree, on this state's devices
@@ -249,7 +283,9 @@ class TrainState:
         this state's generator. A generator state saved on another device
         type (a CUDA generator's state restored for a CPU run, or the other
         way round) cannot be set; the copy of this state's generator is kept
-        then too, and a line says so."""
+        then too, and a line says so. A state with a shared generator gets
+        the tree's, else (a single-device tree, or another device type) one
+        derived from the restored generator."""
         model = copy.deepcopy(self.model)
         model.load_state_dict(tree["model"])
         dev = next(model.parameters()).device
@@ -262,6 +298,13 @@ class TrainState:
                 print(f"checkpoint generator was on {tree.get('generator_device')}, this run is on "
                       f"{self.generator.device.type}: keeping this run's seeded generator", flush=True)
             generator.set_state(self.generator.get_state())
+        shared = None
+        if self.shared_generator is not None:
+            if "shared_generator" in tree and tree.get("generator_device") == self.generator.device.type:
+                shared = torch.Generator(device=self.generator.device)
+                shared.set_state(tree["shared_generator"])
+            else:
+                shared = derived_generator(generator, "shared")
         rn = tree["reward_norm"]
         return type(self)(
             model=model,
@@ -273,6 +316,7 @@ class TrainState:
             generator=generator,
             reward_norm=RunningMoments(**{k: torch.as_tensor(rn[k], dtype=torch.float32).to(dev)
                                           for k in ("mean", "var", "count")}),
+            shared_generator=shared,
         )
 
 
@@ -405,14 +449,52 @@ def ppo_loss(
     return loss, metrics
 
 
-def adv_snr_gate(advantages: Tensor, returns: Tensor, config: PPOConfig) -> Tuple[Tensor, Tensor]:
+def global_moments(x: Tensor, dp: DataParallel | None) -> Tuple[Tensor, Tensor]:
+    """(mean, population variance) of `x` over every rank's values: the
+    sum and count reduced first, then the squared deviations from the
+    global mean (the JAX package's two-psum form). Single-device: torch's
+    mean and var."""
+    if dp is None:
+        return x.mean(), x.var(correction=0)
+    total, n = dp.mean([x.sum(), torch.tensor(float(x.numel()), device=x.device)])
+    mean = total / n
+    (ssq,) = dp.mean([((x - mean) ** 2).sum()])
+    return mean, ssq / n
+
+
+def adv_snr_gate(advantages: Tensor, returns: Tensor, config: PPOConfig,
+                 dp: DataParallel | None = None) -> Tuple[Tensor, Tensor]:
     """(snr, stop0): std(raw advantages) / std(raw returns) and whether it
-    is below config.adv_snr_min (0 disables)."""
+    is below config.adv_snr_min (0 disables); over every rank's values
+    under data parallel, so the ranks stop alike."""
     dev = advantages.device
     if config.adv_snr_min <= 0:
         return torch.zeros((), device=dev), torch.zeros((), dtype=torch.bool, device=dev)
-    snr = torch.sqrt(advantages.var(correction=0)) / (torch.sqrt(returns.var(correction=0)) + 1e-8)
+    a_var = global_moments(advantages, dp)[1]
+    r_var = global_moments(returns, dp)[1]
+    snr = torch.sqrt(a_var) / (torch.sqrt(r_var) + 1e-8)
     return snr, snr < config.adv_snr_min
+
+
+def normalize_advantages(advantages: Tensor, dp: DataParallel | None) -> Tensor:
+    """(A - mean) / (std + 1e-8), by the global moments under data
+    parallel."""
+    if dp is None:
+        return gae.normalize_advantages(advantages)
+    mean, var = global_moments(advantages, dp)
+    return (advantages - mean) / (torch.sqrt(var) + 1e-8)
+
+
+def reduce_grads_and_metrics(grads: List[Tensor], metrics: Dict[str, Tensor],
+                             dp: DataParallel | None) -> Tuple[List[Tensor], Dict[str, Tensor]]:
+    """The gradients and minibatch metrics averaged over the ranks in one
+    all-reduce (unchanged on a single device), before any clip or gate
+    reads them."""
+    if dp is None:
+        return grads, metrics
+    keys = list(metrics)
+    out = dp.mean(list(grads) + [metrics[k] for k in keys])
+    return out[: len(grads)], dict(zip(keys, out[len(grads):]))
 
 
 def select_each(keep: Tensor, new: Sequence[Tensor], old: Sequence[Tensor]) -> List[Tensor]:
@@ -431,13 +513,15 @@ def ppo_update(
     config: PPOConfig,
     freeze: Tensor | None = None,
     perms: Sequence[Tensor] | None = None,
+    dp: DataParallel | None = None,
 ) -> Dict[str, Tensor]:
     """GAE + the epochs of minibatch updates, applied to train_state.model
     and train_state.opt_state in place; returns the metrics averaged over
     the updates. `traj.rewards` are used as given (train_iteration
     normalises them first when config.normalize_rewards is set).
 
-    `perms` (one permutation per epoch) replaces the generator's draws."""
+    `perms` (one permutation per epoch) replaces the update generator's
+    draws. Under `dp`, `traj` is this rank's slice."""
     model = train_state.model
     rewards = traj.rewards
     gae_fn = gae.compute_gae_associative if config.use_associative_gae else gae.compute_gae
@@ -445,11 +529,11 @@ def ppo_update(
         rewards, traj.values, bootstrap, traj.dones, config.discount_factor, config.gae_lambda
     )
     returns = advantages + traj.values
-    adv_snr, stop = adv_snr_gate(advantages, returns, config)
+    adv_snr, stop = adv_snr_gate(advantages, returns, config, dp)
     if freeze is not None:
         stop = stop | freeze
     if config.normalize_advantage:
-        advantages = gae.normalize_advantages(advantages)
+        advantages = normalize_advantages(advantages, dp)
 
     T, B = traj.rewards.shape
     n = T * B
@@ -479,7 +563,7 @@ def ppo_update(
     all_metrics: List[Dict[str, Tensor]] = []
     for epoch in range(config.num_epochs):
         perm = perms[epoch] if perms is not None else torch.randperm(
-            perm_size, generator=train_state.generator, device=rewards.device
+            perm_size, generator=train_state.update_generator, device=rewards.device
         )
         for idx in perm.reshape(config.num_minibatches, -1):
             if env_axis:
@@ -490,7 +574,7 @@ def ppo_update(
                 p.grad = None
             loss, metrics = ppo_loss(model, batch, config, ent_scale)
             loss.backward()
-            grads = [p.grad for p in params]
+            grads, metrics = reduce_grads_and_metrics([p.grad for p in params], metrics, dp)
             new_params, new_opt = clip_and_adam(params, grads, opt, config)
             if gated:
                 if config.kl_target > 0:
@@ -521,11 +605,12 @@ def train_iteration(
     latent_obs: LatentObs | None = None,
     freeze: Tensor | None = None,
     rollout_model: ActorCritic | None = None,
+    dp: DataParallel | None = None,
 ) -> Tuple[TrainState, EnvState, Dict[str, Tensor]]:
     """One PPO iteration: rollout(horizon) -> GAE -> epochs of updates (the
-    single-device train_iteration_core of the JAX package). Updates
-    train_state's model in place; returns (train_state, env_states,
-    metrics).
+    JAX package's train_iteration_core). Updates train_state's model in
+    place; returns (train_state, env_states, metrics). Under `dp`,
+    `env_states` is this rank's slice of the batch.
 
     `rollout_model` acts in the rollout in place of train_state.model: the
     "mixed" recipe passes `model.with_compute_dtype(torch.bfloat16)`, a
@@ -537,6 +622,28 @@ def train_iteration(
         env_states, env_params, train_state.generator,
         config.horizon, config, latent_obs=latent_obs,
     )
+    env_states, metrics = update_from_rollout(train_state, env_states, traj, bootstrap, episodic,
+                                              config, freeze=freeze, dp=dp)
+    return train_state, env_states, metrics
+
+
+def update_from_rollout(
+    train_state: TrainState,
+    env_states: EnvState,
+    traj: Trajectory,
+    bootstrap: Tensor,
+    episodic: Dict[str, Tensor],
+    config: PPOConfig,
+    freeze: Tensor | None = None,
+    dp: DataParallel | None = None,
+    perms: Sequence[Tensor] | None = None,
+) -> Tuple[EnvState, Dict[str, Tensor]]:
+    """The rest of train_iteration after its rollout: reward normalisation
+    (under `dp` each rank updates the moments with its own returns, then
+    the moments are averaged over the ranks, as the JAX package pmeans
+    them), the update phase, the episodic metrics (averaged over the
+    ranks, `train/episodes_finished` summed) and the counters. Returns
+    (env_states with the new return carries, metrics)."""
     if config.normalize_rewards:
         rewards, reward_norm, ret_carry = normalize_rewards(
             train_state.reward_norm, env_states.vecnorm_return, traj.rewards, traj.dones,
@@ -544,10 +651,27 @@ def train_iteration(
         )
         traj = dataclasses.replace(traj, rewards=rewards)
         env_states = dataclasses.replace(env_states, vecnorm_return=ret_carry)
+        if dp is not None:
+            reward_norm = RunningMoments(*dp.mean([reward_norm.mean, reward_norm.var,
+                                                   reward_norm.count]))
         train_state.reward_norm = reward_norm
-    metrics = ppo_update(train_state, traj, bootstrap, config, freeze=freeze)
-    finish_iteration(train_state, metrics, episodic, config, traj.rewards.numel())
-    return train_state, env_states, metrics
+    metrics = ppo_update(train_state, traj, bootstrap, config, freeze=freeze, perms=perms, dp=dp)
+    episodic, env_steps = reduce_episodic(episodic, traj.rewards.numel(), dp)
+    finish_iteration(train_state, metrics, episodic, config, env_steps)
+    return env_states, metrics
+
+
+def reduce_episodic(episodic: Dict[str, Tensor], env_steps: int,
+                    dp: DataParallel | None) -> Tuple[Dict[str, Tensor], int]:
+    """(episodic metrics, env steps) of the whole batch: under `dp` each
+    rank's episodic means averaged over the ranks and the finished-episode
+    count and the steps times the world size, as the JAX package does."""
+    if dp is None:
+        return episodic, env_steps
+    keys = list(episodic)
+    episodic = dict(zip(keys, dp.mean([episodic[k] for k in keys])))
+    episodic["train/episodes_finished"] = episodic["train/episodes_finished"] * dp.world_size
+    return episodic, env_steps * dp.world_size
 
 
 def finish_iteration(train_state: TrainState, metrics: Dict[str, Tensor],
@@ -603,6 +727,15 @@ def evaluate(
     package's eval metric set. Lap-bank evals assign the bank's tracks
     round-robin and add `eval/laps_per_track` ([n_tracks]). The loop
     checks for early exit once per `chunk` steps."""
+    return greedy_episodes(*greedy_policy(model, env_params, config, latent_obs), env_params,
+                           generator, num_envs, max_steps, config, chunk)
+
+
+def greedy_policy(
+    model: ActorCritic, env_params: EnvParams, config: PPOConfig, latent_obs: LatentObs | None,
+) -> Tuple[Callable[[Any], Tensor], Callable[[EnvState, Any], Any], str | None]:
+    """(act_mean, observe, step_obs) of `evaluate` for greedy_episodes /
+    greedy_snaps."""
     obs_builder = make_obs_fn(latent_obs, config)
 
     def observe(states, out):
@@ -610,27 +743,49 @@ def evaluate(
             return obs_builder(states, env_params)
         return out.obs  # the env step's vector observation
 
-    return greedy_episodes(lambda obs: model(obs)[0], observe, env_params, generator, num_envs,
-                           max_steps, config, chunk,
-                           step_obs=None if latent_obs is not None else config.obs_fn)
+    return (lambda obs: model(obs)[0]), observe, (None if latent_obs is not None else config.obs_fn)
 
 
 def greedy_episodes(
     act_mean: Callable[[Any], Tensor],
     observe: Callable[[EnvState, Any], Any],
+    step_obs: str | None,
     env_params: EnvParams,
     generator: torch.Generator,
     num_envs: int,
     max_steps: int,
     config: PPOConfig,
     chunk: int,
-    step_obs: str | None = None,
 ) -> Dict[str, Tensor]:
     """The greedy eval loop of `evaluate`, for any observation: `observe`
     (states, step output or None at the reset) gives the observation (a
     tensor or a tuple of tensors, env-major) and `act_mean` the action
     mean from it. Finished envs stay frozen; each env's first terminal
     snapshot is latched."""
+    snap, done, track_ids = greedy_snaps(act_mean, observe, step_obs, env_params, generator,
+                                         num_envs, max_steps, config, chunk)
+    return evaluate_metrics(snap, done, track_ids, env_params.track.num_tracks)
+
+
+def greedy_snaps(
+    act_mean: Callable[[Any], Tensor],
+    observe: Callable[[EnvState, Any], Any],
+    step_obs: str | None,
+    env_params: EnvParams,
+    generator: torch.Generator,
+    num_envs: int,
+    max_steps: int,
+    config: PPOConfig,
+    chunk: int,
+    shard: slice | None = None,
+) -> Tuple[Dict[str, Tensor], Tensor, Tensor | None]:
+    """greedy_episodes' loop: (each env's terminal or last snapshot, its
+    done flag, the lap bank's track of every env or None).
+
+    `shard` runs only those envs of the batch: the resets (and the route
+    env's chained routes) are drawn for all `num_envs` and sliced, so each
+    env sees the same draws as in the whole batch (data-parallel
+    evaluation, parallel/train_dp.py)."""
     track_ids = None
     if config.env_kind == "route":
         states = route_env.reset(env_params, generator, is_training=False, batch=num_envs)
@@ -640,11 +795,16 @@ def greedy_episodes(
     else:
         states = lap_env.reset(env_params, generator, checkpoint_idx=0, is_training=False,
                                batch=num_envs)
+    if shard is not None:
+        states = map_tensors(lambda t: t[shard], states)
 
     def env_step(s, a):
-        if config.env_kind == "route":
+        if config.env_kind != "route":
+            return lap_env.step(s, a, env_params, obs_fn=step_obs)
+        if shard is None:
             return route_env.step(s, a, env_params, generator, obs_fn=step_obs)
-        return lap_env.step(s, a, env_params, obs_fn=step_obs)
+        routes = route_env.draw_routes(env_params.track, num_envs, generator)[shard]
+        return route_env.step_with_routes(s, a, env_params, routes, obs_fn=step_obs)
 
     def keep_active(active, new, old):
         if isinstance(new, tuple):
@@ -653,8 +813,9 @@ def greedy_episodes(
 
     obs = observe(states, None)
     dev = states.vehicle.pos.device
-    done = torch.zeros(num_envs, dtype=torch.bool, device=dev)
-    snap = {k: torch.zeros(num_envs, device=dev) for k in _SNAP_KEYS}
+    n = states.batch_size
+    done = torch.zeros(n, dtype=torch.bool, device=dev)
+    snap = {k: torch.zeros(n, device=dev) for k in _SNAP_KEYS}
     t = 0
     while t < max_steps and not bool(done.all()):
         for _ in range(chunk):
@@ -671,7 +832,7 @@ def greedy_episodes(
             t += 1
     live = _snap_of(states)
     snap = {k: torch.where(done, snap[k], live[k]) for k in _SNAP_KEYS}
-    return evaluate_metrics(snap, done, track_ids, env_params.track.num_tracks)
+    return snap, done, track_ids
 
 
 def evaluate_metrics(

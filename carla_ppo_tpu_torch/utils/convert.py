@@ -19,6 +19,8 @@ neither JAX nor the JAX package:
   utils.checkpoint saves. The JAX PRNG key cannot be carried over: the tree
   has no generator state, and a restore keeps the template's generator,
   which the Trainer seeds from TrainerSettings.seed;
+- the traffic-light table of an EnvParams (`light_table`): the JAX
+  arrays as the port's tensors and host floats;
 - the pixel agent (`pixel_actor_critic_state_dict`, `pixel_train_state_tree`):
   the conv encoder, z heads and decoder as in the VAE (the heads' rows
   permuted), the ActorCritic under `policy.`, and optax's two-group
@@ -227,6 +229,21 @@ def pixel_train_state_tree(
         opt[group] = {"count": torch.tensor(int(np.asarray(adam["count"])), dtype=torch.int32),
                       **{k: pixel_actor_critic_state_dict(adam[k]) for k in ("mu", "nu")}}
     return {"model": model, "opt_state": opt, **_counter_tree(counters, reward_norm)}
+
+
+def light_table(fields: Mapping[str, Any], device="cpu") -> Dict[str, Any]:
+    """The traffic-light fields of a JAX EnvParams (a mapping of its field
+    names to arrays) as keyword arguments of the port's EnvParams: the
+    waypoint and phase tables as int32 / float32 tensors on `device`, the
+    cycle's period and fractions as host floats. An empty table converts to
+    the port's defaults."""
+    dev = torch.device(device)
+    return {
+        "light_wp": torch.as_tensor(np.array(fields["light_wp"], np.int32), device=dev),
+        "light_phase": torch.as_tensor(np.array(fields["light_phase"], np.float32), device=dev),
+        **{k: float(np.asarray(fields[k])) for k in ("light_period", "light_green_frac",
+                                                      "light_yellow_frac")},
+    }
 
 
 _VEHICLE_FIELDS = ("pos", "yaw", "vx", "vy", "yaw_rate", "steer_angle")

@@ -3,6 +3,8 @@ the CPU. Nothing falls back silently."""
 
 from __future__ import annotations
 
+import hashlib
+
 import torch
 
 
@@ -30,3 +32,11 @@ def make_generator(seed: int, device: str | torch.device) -> torch.Generator:
     g = torch.Generator(device=torch.device(device))
     g.manual_seed(int(seed))
     return g
+
+
+def derived_generator(generator: torch.Generator, salt: str) -> torch.Generator:
+    """A new generator on `generator`'s device, seeded from a hash of its
+    state and `salt`; `generator` itself draws nothing. The same state and
+    salt give the same stream on every process."""
+    digest = hashlib.sha256(generator.get_state().numpy().tobytes() + salt.encode()).digest()
+    return make_generator(int.from_bytes(digest[:8], "little") & (2**63 - 1), generator.device)

@@ -22,10 +22,14 @@ from typing import Dict, Mapping, Optional
 
 
 class MetricsWriter:
-    """Thin TensorBoard scalar writer (no-op without tensorboardX)."""
+    """Thin TensorBoard scalar writer (no-op without tensorboardX, or when
+    not `enabled`: a data-parallel rank other than 0)."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, enabled: bool = True):
         self.log_dir = log_dir
+        self._writer = None
+        if not enabled:
+            return
         try:
             from tensorboardX import SummaryWriter
 

@@ -122,8 +122,37 @@ Phases, one line each; any failure raises and exits non-zero:
      pixel agent (models/torch/pixel_turnkey, step 625), 8 envs, 6000
      steps: no failed episode, the distance within 5% of the JAX CPU
      reference (models/torch/pixel_turnkey/reference_eval_6000.json);
- 17. the kernels line (JSON, one row per TPU kernel, and a row for the
-     composite's depth-and-sky mode), then the last line
+ 17. [dp] data-parallel latent lap PPO over two ranks on the one card
+     (spawned processes, gloo with CUDA tensors: NCCL refuses two ranks on
+     one device), 1024 envs (512 a rank), PPOConfig defaults, the seeded
+     de-prop seg VAE widths and a 500/300 policy: 2 DP iterations, then a
+     300-step DP evaluate of 1024 envs. Each rank: a checksum of every
+     parameter, buffer, Adam moment and reward moment after each iteration
+     (the ranks' must be equal), the ground pass and the composite 129
+     times per rollout, finite losses and returns; global env-steps/s and
+     the ms per iteration in collectives (CUDA events around each
+     DataParallel.mean, the all-reduce of gradients, metrics and moments).
+     Two ranks on one card check correctness, not scaling. Then one
+     iteration at world size 1 over NCCL (the backend of the multi-card
+     Trainer) against a single-device train_iteration from the same state
+     and streams: parameters within 1e-4 and each step within 2% of the
+     learning rate (tests/test_torch_ppo.py::test_update_phase_matches);
+ 18. [agents] a fleet of 1024 roaming agents (envs/agents.py, 18 km/h)
+     on the lap track with props and traffic lights (add_traffic_lights),
+     no NPCs, 1200 lap_env steps (40 s) from resets spread over the lap,
+     the seg camera rendered through the kernels every 10th step: no
+     episode may end for another reason than VEHICLE_STOPPED while
+     waiting at a red light (in particular no OFF_TRACK), mean distance
+     above 150 m, centre deviation below 1.6 m, and 8-25 km/h average
+     speed over the agents that never stood at a red light (the JAX
+     package's tests/test_agents.py contract at fleet size); then a batch
+     spawned before each light: the kernel frame equals the plain frame
+     with the light's TRAFFICSIGNS pole in it, an always-red table stops
+     every agent short of its light within 600 steps, an always-green one
+     lets every agent pass (tests/test_traffic_lights.py's contracts);
+ 19. the kernels line (JSON, one row per TPU kernel, and a row for the
+     composite's depth-and-sky mode; the camera rows also carry the
+     [dp] and [agents] launch counts), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Float32 matmuls and convolutions run in full float32 (TF32 off for both).
@@ -192,6 +221,14 @@ PIXEL_ARGV = ["--obs", "pixels", "--deprop_aux", "1", "--learning_rate", "3e-4",
               "--kl_target", "0.015", "--freeze_on_solve", "2", "--warm_start_vae", DEPROP_VAE,
               "--eval_interval", "2", "--eval_envs", "4"]
 PIXEL_EVAL_STEPS = 1024
+DP_WORLD = 2
+DP_ITERATIONS = 2
+DP_DEADLINE_S = 600
+AGENT_STEPS = 1200  # 40 s at 30 fps
+AGENT_RENDER_EVERY = 10
+AGENT_SPEED_KMH = 18.0
+LIGHT_SPAWN_BEFORE = 30  # waypoints (m) before each light
+LIGHT_STEPS = 600
 FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, an FMA counted as two
 
 
@@ -381,7 +418,6 @@ def main() -> int:
     from carla_ppo_tpu_torch.envs import lap_bank_env, lap_env, route_env, route_planner, track
     from carla_ppo_tpu_torch.envs.types import EnvParams, VehicleState
     from carla_ppo_tpu_torch.models.policy import ActorCritic
-    from carla_ppo_tpu_torch.models.vae import VAE
     from carla_ppo_tpu_torch.ops import rasterizer as R
     from carla_ppo_tpu_torch.ops import rasterizer_cuda as RC
     from carla_ppo_tpu_torch.training import ppo
@@ -592,11 +628,8 @@ def main() -> int:
     del timing_inputs, contract_inputs, batches, fresh, wrap, routed, odd
 
     # 7. The lap path.
-    seed_gen = make_generator(1, "cpu")  # weights are made on the host, then moved
-    vae = VAE(source_shape=(cam.height, cam.width, 1), z_dim=64, generator=seed_gen).to(dev).eval()
-    latent = ppo.LatentObs(vae_model=vae)
-    config = ppo.PPOConfig()
-    model = ActorCritic(latent.obs_dim, generator=seed_gen).to(dev)
+    _, latent, model, config = _lap_latent_setup(torch, dev)
+    vae = latent.vae_model
     train_state, envs, _, lap_launches = drive_train(
         torch, ppo, RC, "lap", params, config, latent, model, make_generator(2, dev), 2,
         make_generator(3, dev), smi)
@@ -698,7 +731,12 @@ def main() -> int:
                                      PRETRAINED_ENVS, PRETRAINED_STEPS, 0.05,
                                      ("ground_pass", "composite"))
 
-    # 17. Results: one row per TPU kernel.
+    # 17.-18. Data parallel over two ranks (and world size 1 over NCCL);
+    # the scripted agents with traffic lights.
+    dp_launches = dp_phase(torch, smi)
+    agents_launches = agents_phase(torch, RC, smi, dev)
+
+    # 19. Results: one row per TPU kernel.
     def row(name, source, replaces, launches, key, err):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}",
                 "replaces": f"{PALLAS}:{replaces}", "launches": launches, "max_abs_err": err,
@@ -727,6 +765,9 @@ def main() -> int:
         row("composite (depth-and-sky mode)", "composite.cu", 1290,
             rgb_launches["composite_depth_sky"], "composite_depth_sky", errs["composite_depth_sky"]),
     ]
+    for k in kernels[:2]:
+        k["phase_launches"] = {**{f"dp rank {r}": n[k["name"]] for r, n in enumerate(dp_launches)},
+                               "agents": agents_launches[k["name"]]}
     log(f"[launches] lap_bank path: ground_pass {bank_launches['ground_pass']}, "
         f"composite {bank_launches['composite']}")
     log(f"[launches] trainer path: {trainer_launches}; pretrained path: {pretrained_launches}; "
@@ -740,6 +781,284 @@ def main() -> int:
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _state_checksum(torch, train_state) -> str:
+    """sha256 of every parameter, buffer, Adam moment and reward moment."""
+    import hashlib
+
+    from carla_ppo_tpu_torch.parallel import train_dp
+
+    h = hashlib.sha256()
+    for t in train_dp._state_tensors(train_state):
+        h.update(t.detach().cpu().reshape(-1).contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _lap_latent_setup(torch, dev):
+    """(lap params, LatentObs, ActorCritic, PPOConfig) of phase 7: the lap
+    track with props, the seeded de-prop seg VAE widths, a 500/300 policy
+    (weights made on the host from seed 1, then moved)."""
+    from carla_ppo_tpu_torch.envs import track
+    from carla_ppo_tpu_torch.envs.types import EnvParams
+    from carla_ppo_tpu_torch.models.policy import ActorCritic
+    from carla_ppo_tpu_torch.models.vae import VAE
+    from carla_ppo_tpu_torch.training import ppo
+    from carla_ppo_tpu_torch.utils.device import make_generator
+
+    params = EnvParams(track=track.make_lap_track(seed=0, props=True, device=dev))
+    seed_gen = make_generator(1, "cpu")
+    vae = VAE(source_shape=(80, 160, 1), z_dim=64, generator=seed_gen).to(dev).eval()
+    latent = ppo.LatentObs(vae_model=vae)
+    model = ActorCritic(latent.obs_dim, generator=seed_gen).to(dev)
+    return params, latent, model, ppo.PPOConfig()
+
+
+def dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
+    """One rank of [dp] (a spawned process): DP_ITERATIONS data-parallel
+    iterations and a DP evaluate on its slice of 1024 envs; writes what it
+    saw to out_dir/rank<rank>.json."""
+    import torch
+
+    from carla_ppo_tpu_torch.ops import rasterizer_cuda as RC
+    from carla_ppo_tpu_torch.parallel import mesh, train_dp
+    from carla_ppo_tpu_torch.training import ppo
+    from carla_ppo_tpu_torch.utils.device import exact_float32, make_generator
+
+    exact_float32()
+    dp = mesh.init(rank, world, init_method, "cuda", backend="gloo", timeout_s=DP_DEADLINE_S / 2)
+    try:
+        dev = dp.device
+        params, latent, model, config = _lap_latent_setup(torch, dev)
+        ts = ppo.create_train_state(model, config, make_generator(2, dev))
+        envs = train_dp.shard_env_batch(ppo.init_env_batch(params, config.num_envs, ts.generator), dp)
+        train_dp.replicate(ts, dp)
+        step = train_dp.make_dp_train_iteration(dp, config, params, latent)
+        out = {"iterations": []}
+        stages = [(mesh.DataParallel, "mean", "collective")]
+        with timed_stages(torch, stages) as spans:
+            for _ in range(DP_ITERATIONS):
+                n0 = len(spans["collective"])
+                RC.reset_launch_counts()
+                torch.cuda.synchronize()
+                h0 = time.perf_counter()
+                ts, envs, m = step(ts, envs)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - h0
+                coll = spans["collective"][n0:]
+                out["iterations"].append({
+                    "seconds": seconds, "launches": dict(RC.LAUNCHES),
+                    "checksum": _state_checksum(torch, ts),
+                    "collectives": len(coll), "collective_ms": span_ms(coll)[0],
+                    "collective_host_ms": span_ms(coll)[1],
+                    "metrics": {k: m[k].item() for k in ("train_loss/loss", "train_loss/policy",
+                                                         "train_loss/value", "train/returns",
+                                                         "train/approx_kl")},
+                    "total_env_steps": ts.total_env_steps})
+        RC.reset_launch_counts()
+        h0 = time.perf_counter()
+        ev = train_dp.make_dp_evaluate(dp, ts.model, config, params, config.num_envs, chunk=EVAL_STEPS,
+                                       latent_obs=latent)(make_generator(3, dev), EVAL_STEPS)
+        torch.cuda.synchronize()
+        out["eval"] = {"seconds": time.perf_counter() - h0, "launches": dict(RC.LAUNCHES),
+                       "metrics": {k: v.tolist() for k, v in ev.items()}}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        mesh.destroy()
+
+
+def dp_phase(torch, smi):
+    """[dp]: DP_WORLD ranks on the one card, then world size 1 over NCCL.
+    Returns each rank's camera launches over its training iterations."""
+    import torch.multiprocessing as mp
+
+    from carla_ppo_tpu_torch.envs.types import map_tensors
+    from carla_ppo_tpu_torch.parallel import mesh, train_dp
+    from carla_ppo_tpu_torch.training import ppo
+    from carla_ppo_tpu_torch.utils.device import make_generator
+
+    config = ppo.PPOConfig()
+    with tempfile.TemporaryDirectory() as out_dir:
+        h0 = time.perf_counter()
+        ctx = mp.start_processes(dp_rank, args=(DP_WORLD, f"tcp://127.0.0.1:{mesh.free_port()}", out_dir),
+                                 nprocs=DP_WORLD, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=max(1.0, DP_DEADLINE_S - (time.perf_counter() - h0))):
+                if time.perf_counter() - h0 > DP_DEADLINE_S:
+                    raise AssertionError(f"[dp] ranks still running after {DP_DEADLINE_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        wall = time.perf_counter() - h0
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    per_rank = config.num_envs // DP_WORLD
+    for i in range(DP_ITERATIONS):
+        its = [rk["iterations"][i] for rk in ranks]
+        sums = [it["checksum"] for it in its]
+        secs = max(it["seconds"] for it in its)
+        steps = config.horizon * config.num_envs
+        log(f"[dp] {smi}: iteration {i}, {DP_WORLD} ranks x {per_rank} envs on one card (gloo): "
+            f"{secs:.3f} s = {steps / secs:.1f} global env-steps/s; collectives per rank "
+            + ", ".join(f"{it['collectives']} calls {it['collective_ms']:.3f} ms between events "
+                        f"({it['collective_host_ms']:.3f} ms host)" for it in its)
+            + f"; state checksums {[c[:16] for c in sums]}; launches {[it['launches'] for it in its]}; "
+            f"metrics {its[0]['metrics']}")
+        if len(set(sums)) != 1:
+            raise AssertionError(f"[dp] the ranks' states differ after iteration {i}: {sums}")
+        for r, it in enumerate(its):
+            if (it["launches"]["ground_pass"], it["launches"]["composite"]) != (config.horizon + 1,) * 2:
+                raise AssertionError(f"[dp] rank {r} rollout {i} launched {it['launches']}, not "
+                                     f"{config.horizon + 1} of each camera kernel")
+            if not all(math.isfinite(v) for v in it["metrics"].values()):
+                raise AssertionError(f"[dp] non-finite metrics on rank {r}: {it['metrics']}")
+            if it["total_env_steps"] != (i + 1) * steps:
+                raise AssertionError(f"[dp] total_env_steps {it['total_env_steps']} is not the global batch's")
+    evs = [rk["eval"] for rk in ranks]
+    log(f"[dp] {smi}: DP evaluate {EVAL_STEPS} steps x {config.num_envs} envs in "
+        f"{max(e['seconds'] for e in evs):.3f} s; launches {[e['launches'] for e in evs]}; "
+        + " ".join(f"{k}={v:.6g}" for k, v in evs[0]["metrics"].items() if isinstance(v, float)))
+    if evs[0]["metrics"] != evs[1]["metrics"]:
+        raise AssertionError("[dp] the ranks' evaluate metrics differ")
+    if not all(math.isfinite(v) for v in evs[0]["metrics"].values() if isinstance(v, float)):
+        raise AssertionError(f"[dp] non-finite eval metrics: {evs[0]['metrics']}")
+    log(f"[dp] {smi}: the phase's two ranks took {wall:.2f} s with process start-up")
+
+    # World size 1 over NCCL against the single-device iteration.
+    dev = torch.device("cuda")
+    dp = mesh.init(0, 1, f"tcp://127.0.0.1:{mesh.free_port()}", "cuda", timeout_s=300)
+    try:
+        params, latent, model, config = _lap_latent_setup(torch, dev)
+        ts = ppo.create_train_state(model, config, make_generator(4, dev))
+        envs = ppo.init_env_batch(params, config.num_envs, ts.generator)
+        train_dp.replicate(ts, dp)
+        single = ts.restored(ts.checkpoint_tree())  # a copy: the update makes new tensors
+        single_envs = map_tensors(lambda t: t.clone(), envs)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        train_dp.make_dp_train_iteration(dp, config, params, latent)(ts, envs)
+        ppo.train_iteration(single, single_envs, params, config, latent_obs=latent)
+        torch.cuda.synchronize()
+        got = dict(ts.model.named_parameters())
+        want = dict(single.model.named_parameters())
+        p_err = max(float((got[n] - want[n]).detach().abs().max()) for n in got)
+        s_err = max(float(((got[n] - before[n]) - (want[n] - before[n])).detach().abs().max())
+                    for n in got)
+        log(f"[dp] {smi}: world size 1 over {dp.backend} vs the single-device train_iteration, "
+            f"{config.num_envs} envs: "
+            f"max |param diff| {p_err:.3g} (bound 1e-4), max |step diff| {s_err:.3g} (bound "
+            f"{0.02 * config.learning_rate:.3g})")
+        if p_err > 1e-4 or s_err > 0.02 * config.learning_rate:
+            raise AssertionError("[dp] world size 1 disagrees with the single-device iteration")
+    finally:
+        mesh.destroy()
+    return [rk["iterations"][-1]["launches"] for rk in ranks]
+
+
+def agents_phase(torch, RC, smi, dev):
+    """[agents]: a roaming fleet with traffic lights, then the lights'
+    stop, pass and frame checks. Returns the camera launches of the
+    fleet's drive."""
+    from carla_ppo_tpu_torch.envs import agents, lap_env, track
+    from carla_ppo_tpu_torch.envs import traffic_lights as TL
+    from carla_ppo_tpu_torch.envs.types import EnvParams, SegClass, TerminationReason
+    from carla_ppo_tpu_torch.ops import rasterizer as R
+    from carla_ppo_tpu_torch.utils.device import make_generator
+
+    fleet = BATCH
+    params = TL.add_traffic_lights(EnvParams(track=track.make_lap_track(seed=0, props=True, device=dev)))
+    L, lights = params.track.length, params.light_wp
+    wait_steps = int(round(params.reward.low_speed_timeout / params.dt))
+    gen = make_generator(0, dev)
+    states = lap_env.reset(params, gen, checkpoint_idx=torch.arange(fleet, device=dev) * L // fleet)
+    agent = agents.AgentState.create(fleet, dev, AGENT_SPEED_KMH)
+    cam = R.CameraConfig()
+    last_red = torch.full((fleet,), -10**9, dtype=torch.int64, device=dev)
+    stood_at_red = torch.zeros(fleet, dtype=torch.bool, device=dev)
+    bad_ends = torch.zeros(fleet, dtype=torch.int64, device=dev)
+    red_stops = torch.zeros(fleet, dtype=torch.int64, device=dev)
+    max_dev = torch.zeros(fleet, device=dev)
+    RC.reset_launch_counts()
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for i in range(AGENT_STEPS):
+        if i % AGENT_RENDER_EVERY == 0:
+            frames = R.render_batch(states, params, cam)
+        red = TL.is_red_light_ahead(states, params)
+        last_red = torch.where(red, i, last_red)
+        stood_at_red |= red & (states.vehicle.vx < 0.6)
+        action, agent = agents.roaming_agent_step(agent, states, params)
+        states, out = lap_env.step(states, action, params, obs_fn=None)
+        waited = (out.termination_reason == int(TerminationReason.VEHICLE_STOPPED)) & (
+            i - last_red <= wait_steps)
+        red_stops += (out.done & waited).long()
+        bad_ends += (out.done & ~waited).long()
+        max_dev = torch.maximum(max_dev, states.distance_from_center)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - h0
+    launches = dict(RC.LAUNCHES)
+    dist = states.distance_traveled
+    speed = 3.6 * states.speed_accum / states.step_count.clamp(min=1)
+    moving = ~stood_at_red
+    log(f"[agents] {smi}: {fleet} roaming agents, {params.light_wp.numel()} lights at waypoints "
+        f"{lights.tolist()}, {AGENT_STEPS} steps in {seconds:.3f} s = {fleet * AGENT_STEPS / seconds:.1f} "
+        f"agent-steps/s (a seg frame every {AGENT_RENDER_EVERY} steps); mean distance "
+        f"{float(dist.mean()):.3f} m (min {float(dist.min()):.3f}), max centre deviation "
+        f"{float(max_dev.max()):.4f} m, {int(stood_at_red.sum())} agents stood at a red light, "
+        f"{int(red_stops.sum())} VEHICLE_STOPPED ends while waiting at one, {int(bad_ends.sum())} "
+        f"other ends; average speed of the others {float(speed[moving].min()):.3f}-"
+        f"{float(speed[moving].max()):.3f} km/h; frames {tuple(frames.shape)}; launches {launches}")
+    if int(bad_ends.sum()):
+        raise AssertionError(f"[agents] {int(bad_ends.sum())} episodes ended for another reason than "
+                             "waiting at a red light")
+    if not float(dist.mean()) > 150.0 or not float(max_dev.max()) < 1.6:
+        raise AssertionError("[agents] the fleet fell short of 150 m or left its lane by 1.6 m")
+    if not bool(moving.any()) or not (8.0 < float(speed[moving].min()) and float(speed[moving].max()) < 25.0):
+        raise AssertionError("[agents] average speeds outside 8-25 km/h")
+    if launches["ground_pass"] != AGENT_STEPS // AGENT_RENDER_EVERY or launches["composite"] <= 0:
+        raise AssertionError(f"[agents] the fleet's camera did not run through the kernels: {launches}")
+
+    # The lights: a batch spawned LIGHT_SPAWN_BEFORE waypoints before each.
+    start = (lights.to(torch.int64) - LIGHT_SPAWN_BEFORE) % L
+    spawn = lap_env.reset(params, gen, checkpoint_idx=start.to(torch.int32))
+    bare = EnvParams(track=track.make_lap_track(seed=0, props=True, device=dev))
+    win_cols, payload = R.prep_windows(spawn, params, cam)
+    slab, stripes, sky_px, depth_rows = R._device_layout(cam, str(dev))
+    plain = R.composite_plain(R.prep_candidates(spawn, params, cam), depth_rows,
+                              R.ground_pass_plain(win_cols, payload, slab, stripes, sky_px,
+                                                  cam.height * cam.width,
+                                                  R.style_constants(R.RoadStyle())), cam.width)
+    got = R.render_batch(spawn, params, cam).reshape(plain.shape)
+    signs = int(SegClass.TRAFFICSIGNS)
+    n_signs = (got == signs).sum(1)
+    n_bare = (R.render_batch(spawn, bare, cam).reshape(plain.shape) == signs).sum(1)
+    mismatched = int((got != plain).sum())
+    log(f"[agents] light frames: B={spawn.batch_size}, {LIGHT_SPAWN_BEFORE} m before each light: "
+        f"mismatched pixels {mismatched} against the plain frame; TRAFFICSIGNS pixels {n_signs.tolist()} "
+        f"(without the light poles {n_bare.tolist()})")
+    if mismatched or not bool((n_signs > 3).all()) or not bool((n_signs > n_bare).all()):
+        raise AssertionError("[agents] a light's frame disagrees or shows no pole")
+    target = spawn.waypoint_idx + LIGHT_SPAWN_BEFORE
+    for label, green, yellow in (("always red", 0.0, 0.0), ("always green", 1.0, 0.0)):
+        p = dataclasses.replace(params, light_green_frac=green, light_yellow_frac=yellow)
+        s = spawn
+        a = agents.AgentState.create(s.batch_size, dev, AGENT_SPEED_KMH)
+        for _ in range(LIGHT_STEPS):
+            act, a = agents.roaming_agent_step(a, s, p)
+            s, _ = lap_env.step(s, act, p, obs_fn=None)
+        log(f"[agents] {label}: after {LIGHT_STEPS} steps waypoints {(s.waypoint_idx - target).tolist()} "
+            f"from each light, vx {[round(v, 3) for v in s.vehicle.vx.tolist()]}")
+        if green == 0.0:
+            ok = bool(((s.vehicle.vx < 0.6) & (s.waypoint_idx < target)).all())
+        else:
+            ok = bool((s.waypoint_idx > target + 5).all())
+        if not ok:
+            raise AssertionError(f"[agents] {label}: an agent did not stop short of / pass its light")
+    return launches
 
 
 def stage_split(torch, ppo, smi, tag, model, envs, params, config, latent, gen, stages):

@@ -20,7 +20,7 @@ import torch
 
 from carla_ppo_tpu_torch.envs.track import track_from_arrays
 from carla_ppo_tpu_torch.envs.types import EnvParams as TEnvParams
-from carla_ppo_tpu_torch.utils.convert import env_state_from_arrays
+from carla_ppo_tpu_torch.utils.convert import env_state_from_arrays, light_table
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -42,9 +42,11 @@ def port_track(jtrack, device="cpu"):
 
 
 def port_params(jparams, device="cpu", **overrides):
-    """Port EnvParams on the same track (other fields at the shared
-    defaults unless overridden)."""
-    return TEnvParams(track=port_track(jparams.track, device), **overrides)
+    """Port EnvParams on the same track with the same traffic-light table
+    (other fields at the shared defaults unless overridden)."""
+    lights = light_table({k: getattr(jparams, k) for k in (
+        "light_wp", "light_phase", "light_period", "light_green_frac", "light_yellow_frac")}, device)
+    return TEnvParams(track=port_track(jparams.track, device), **{**lights, **overrides})
 
 
 def port_state(jstate, device="cpu"):
