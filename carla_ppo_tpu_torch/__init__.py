@@ -11,13 +11,17 @@ by the `tests/test_torch_*.py` parity tests. This package never imports it,
 nor JAX.
 
 Layout mirrors the JAX package:
-  envs/      track baking, vehicle dynamics, rewards, the lap env
-  models/    ConvVAE encoder, Gaussian actor-critic
+  envs/      track baking, vehicle dynamics, rewards, the lap, route and
+             lap-bank envs, scripted agents, the interactive envs (gym_api,
+             hud) and their Gymnasium views (gymnasium_api, vector_env)
+  models/    ConvVAE, Gaussian actor-critic, the pixel policy
   ops/       camera (plain PyTorch + CUDA kernels), GAE, running stats
-  training/  PPO rollout / update / greedy evaluate, the Trainer
+  training/  PPO rollout / update / greedy evaluate, the Trainer, the VAE
+             trainer, pixel PPO, eval videos (eval_host)
   parallel/  data-parallel PPO over torch.distributed (one rank per card)
   cli/       train, run_eval, collect_data, train_vae
-  utils/     device selection, kernel build, weight conversion
+  utils/     device selection, kernel build, weight conversion,
+             checkpoints, metrics, datasets, PNG, video
 
 Entry points default to ``device="cuda"`` and raise if no card is present;
 pass ``device="cpu"`` explicitly to run the plain PyTorch versions.

@@ -7,8 +7,10 @@ one env (a batch of one) on random lap tracks, with spawn noise, roadside
 props and NPC traffic by default, and every `--save_every`-th frame saves a
 pair: `rgb/<i>.png` (the shaded pseudo-RGB camera with texture noise) and
 `segmentation/<i>.png` (the class id in the red channel, as CARLA's seg
-camera writes it), through utils/png.py. `--manual` (keyboard driving)
-needs the interactive env, ROADMAP A12, and raises until then.
+camera writes it), through utils/png.py. `--manual` drives the interactive
+lap env (envs/gym_api) from the keyboard in a pygame window: SPACE toggles
+recording, ESC quits, and each recorded step saves a pair of the env's
+camera.
 
 Example:
   python -m carla_ppo_tpu_torch.cli.collect_data --output_dir vae/data --num_images 10000
@@ -60,7 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "traffic so datasets cover all 13 classes")
     parser.add_argument("--num_npcs", type=int, default=6)
     parser.add_argument("--manual", action="store_true",
-                        help="Interactive WASD driving (needs the interactive env, ROADMAP A12)")
+                        help="Interactive WASD driving like the reference")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the plain PyTorch versions of the kernels")
     return parser
@@ -80,12 +82,11 @@ def drive_action(state, env_params: EnvParams, steer_noise: float, gen: torch.Ge
 def main(argv=None) -> int:
     """Collects the pairs; returns how many were saved."""
     params = build_parser().parse_args(argv)
-    if params.manual:
-        raise NotImplementedError(
-            "--manual needs the interactive env, which is not ported yet (ROADMAP A12)")
     dev = resolve_device(params.device)
     os.makedirs(os.path.join(params.output_dir, "rgb"), exist_ok=True)
     os.makedirs(os.path.join(params.output_dir, "segmentation"), exist_ok=True)
+    if params.manual:
+        return _manual_collect(params, dev)
 
     cam = raster.CameraConfig()
     gen = make_generator(params.seed, dev)
@@ -111,6 +112,49 @@ def main(argv=None) -> int:
                 saved += 1
                 if saved % 500 == 0:
                     print(f"saved {saved}/{params.num_images}", flush=True)
+    print(f"done: {saved} pairs under {params.output_dir}")
+    return saved
+
+
+def _manual_collect(params, dev: torch.device) -> int:
+    """Keyboard collection through the interactive lap env; SPACE toggles
+    recording. Returns how many pairs were saved. pygame is initialised
+    before the first event pump (the JAX collector pumps before its window
+    exists, which pygame refuses unless something initialised it)."""
+    import pygame
+    from pygame.locals import K_ESCAPE, K_LEFT, K_RIGHT, K_SPACE, K_UP, K_a, K_d, K_w
+
+    from carla_ppo_tpu_torch.envs.gym_api import CarlaLapEnv
+
+    env = CarlaLapEnv(obs_res=(160, 80), device=dev)
+    cam = raster.CameraConfig()
+    recording = False
+    saved = 0
+    action = np.zeros(2, np.float32)
+    gen = make_generator(params.seed, dev)
+    print("Drive with WASD/arrows; SPACE toggles recording; ESC quits.")
+    pygame.init()
+    while saved < params.num_images:
+        pygame.event.pump()
+        keys = pygame.key.get_pressed()
+        if keys[K_ESCAPE]:
+            break
+        if keys[K_SPACE]:
+            recording = not recording
+        action[0] = -0.5 if (keys[K_LEFT] or keys[K_a]) else (
+            0.5 if (keys[K_RIGHT] or keys[K_d]) else 0.0)
+        action[1] = 1.0 if (keys[K_UP] or keys[K_w]) else 0.0
+        obs, _, done, info = env.step(action)
+        if info["closed"]:
+            break
+        env.render()
+        if recording:
+            rgb, seg = raster.render_rgb_and_semantic(env.state, env.params, cam, noise=gen)
+            save_pair(rgb.cpu().numpy(), seg.cpu().numpy(), params.output_dir, saved)
+            saved += 1
+        if done:
+            env.reset()
+    env.close()
     print(f"done: {saved} pairs under {params.output_dir}")
     return saved
 

@@ -4,14 +4,15 @@ The flags and defaults of carla_ppo_tpu/cli/run_eval.py, plus `--device`
 (default "cuda") and `--eval_max_steps` (the metric pass's step cap, the
 Trainer's 26,000 by default, as the JAX CLI uses). Loads the newest
 checkpoint of models/<model_name> (`--checkpoint best`: of the best-eval
-stream) and runs the vectorised greedy metric pass over `--num_envs` envs.
-Recording videos needs the interactive env and the video writer (ROADMAP
-A12): until then it raises NotImplementedError unless `--no_video` is given.
+stream) and runs the vectorised greedy metric pass over `--num_envs` envs,
+then, unless `--no_video`, records `--episodes` greedy episodes of up to
+`--max_steps` steps through the interactive env to
+models/<model_name>/videos/eval<i>.avi (Trainer.record_eval_video).
 
 Examples (the converted shipped latent and pixel agents):
   python -m carla_ppo_tpu_torch.cli.run_eval --model_name torch/latent_agent \\
       --vae_model models/torch/vae_models/from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data \\
-      --num_envs 8 --no_video
+      --num_envs 8
   python -m carla_ppo_tpu_torch.cli.run_eval --model_name torch/pixel_turnkey --obs pixels \\
       --num_envs 8 --no_video
 """
@@ -93,9 +94,7 @@ def _has_checkpoint(model_dir: str) -> bool:
 def main(argv=None) -> Dict[str, float]:
     """Runs the metric pass and returns its metrics."""
     params = build_parser().parse_args(argv)
-    if not params.no_video:
-        raise NotImplementedError(
-            "recording eval videos is not ported yet (ROADMAP A12); pass --no_video")
+    os.environ.setdefault("SDL_VIDEODRIVER", "dummy")
 
     # Validate before constructing the Trainer, which creates the model's
     # directories: a mistyped --model_name must leave nothing behind.
@@ -141,6 +140,11 @@ def main(argv=None) -> Dict[str, float]:
         print("Vectorized greedy eval:")
         for k, v in sorted(metrics.items()):
             print(f"  {k}: {v:.3f}")
+        if not params.no_video:
+            for ep in range(params.episodes):
+                video = os.path.join(trainer.video_dir, f"eval{ep}.avi")
+                reward = trainer.record_eval_video(video, max_steps=params.max_steps)
+                print(f"episode {ep}: reward={reward:.2f} video={video}")
     finally:
         trainer.close()
     return metrics

@@ -3,8 +3,8 @@
 The flags and defaults of carla_ppo_tpu/cli/train.py, plus `--device`
 (default "cuda"; "cpu" must be asked for). `--num_episodes` counts training
 iterations (one iteration = one rollout + update over the whole env batch).
-Values this port does not run yet raise NotImplementedError naming their
-ROADMAP item: `--record_eval 1` (A12). `--obs pixels` trains the pixel
+`--record_eval 1` writes a video of one greedy episode after each eval
+(models/<name>/videos/iteration<N>.avi). `--obs pixels` trains the pixel
 agent with the joint VAE (config 4); its model computes in float32
 whatever `--policy_dtype` says.
 

@@ -47,7 +47,7 @@ def reset(
     track_id: Tensor | int = 0,
     batch: int | None = None,
 ) -> EnvState:
-    return lap_env.reset(params, generator, checkpoint_idx, is_training, batch=batch,
+    return lap_env.reset(params, generator, is_training, checkpoint_idx, batch=batch,
                          route_id=track_id)
 
 

@@ -67,8 +67,8 @@ def _as_batch(x, batch: int, dtype, device) -> Tensor:
 def reset(
     params: EnvParams,
     generator: torch.Generator,
-    checkpoint_idx: Tensor | int,
     is_training: Tensor | bool = True,
+    checkpoint_idx: Tensor | int = 0,
     batch: int | None = None,
     route_id: Tensor | int | None = None,
 ) -> EnvState:

@@ -6,11 +6,11 @@ buffer off its head, PID-follows the buffer head, purges every buffered
 waypoint the vehicle came within `min_distance` of, and stops once the
 queue runs dry. As in the JAX package the plan is the baked track polyline
 itself (each env's row on a bank), and the queue is a cursor over it: per
-env, `head` (the plan index of the buffer head), `buffer_fill` (how many of
-the BUFFER_SIZE buffered entries lie inside the plan) and `exhausted` (an
-open plan whose head ran past its end). The JAX struct carries `head` and
-derives the other two in each step; here all three are state, advanced
-branch-free with torch.where. The tracks are baked at 1 m, so the queue
+env, `head` (the plan index of the buffer head). `cursor` derives from it
+how many of the BUFFER_SIZE buffered entries lie inside the plan and
+whether an open plan's head ran past its end, as the JAX package does in
+each step; the cursor advances branch-free with torch.where. The tracks
+are baked at 1 m, so the queue
 strides the polyline by `sampling_stride` waypoints to keep the
 reference's spacing (target speed x 1 s).
 """
@@ -42,8 +42,6 @@ class LocalPlannerState:
 
     controller: VehiclePIDController
     head: Tensor  # [B] int32, plan index of the buffer head
-    buffer_fill: Tensor  # [B] int32, buffered entries inside the plan
-    exhausted: Tensor  # [B] bool, an open plan's head past its end
     target_speed_kmh: Tensor  # [B] float32
     sampling_stride: int  # plan waypoints per queue entry
     min_distance: float  # purge radius (m)
@@ -51,38 +49,31 @@ class LocalPlannerState:
     @classmethod
     def create(
         cls,
-        env_state: EnvState,
-        env_params: EnvParams,
         target_speed_kmh: float = DEFAULT_TARGET_SPEED_KMH,
         sampling_radius_s: float = 1.0,
+        *,
+        batch: int,
+        device,
     ) -> "LocalPlannerState":
-        """A planner at the start of each env's plan. `sampling_radius_s`:
-        the queue spacing in seconds of travel at the target speed."""
+        """Planners of `batch` envs at the start of each env's plan.
+        `sampling_radius_s`: the queue spacing in seconds of travel at the
+        target speed."""
         radius_m = target_speed_kmh * sampling_radius_s / 3.6
-        B, dev = env_state.batch_size, env_state.waypoint_idx.device
-        head = torch.zeros(B, dtype=torch.int32, device=dev)
-        stride = max(1, round(radius_m))
-        fill, exhausted = _cursor(head, stride, env_track(env_params.track, env_state.route_id))
         return cls(
-            controller=VehiclePIDController.create(B, dev),
-            head=head,
-            buffer_fill=fill,
-            exhausted=exhausted,
-            target_speed_kmh=torch.full((B,), float(target_speed_kmh), device=dev),
-            sampling_stride=stride,
+            controller=VehiclePIDController.create(batch, device),
+            head=torch.zeros(batch, dtype=torch.int32, device=device),
+            target_speed_kmh=torch.full((batch,), float(target_speed_kmh), device=device),
+            sampling_stride=max(1, round(radius_m)),
             min_distance=radius_m * MIN_DISTANCE_PERCENTAGE,
         )
 
-    def set_global_plan(self, env_state: EnvState, env_params: EnvParams) -> "LocalPlannerState":
+    def set_global_plan(self) -> "LocalPlannerState":
         """Restart every cursor at its plan's start with a fresh controller
         (the reference clears its queue and refills it from the new plan;
         here the plan is the track, so only the cursor moves)."""
         head = torch.zeros_like(self.head)
-        fill, exhausted = _cursor(head, self.sampling_stride,
-                                  env_track(env_params.track, env_state.route_id))
         return dataclasses.replace(
-            self, head=head, buffer_fill=fill, exhausted=exhausted,
-            controller=VehiclePIDController.create(head.shape[0], head.device))
+            self, head=head, controller=VehiclePIDController.create(head.shape[0], head.device))
 
     def set_speed(self, speed_kmh: float) -> "LocalPlannerState":
         return dataclasses.replace(self, target_speed_kmh=torch.full_like(self.target_speed_kmh,
@@ -102,10 +93,17 @@ def _buffer_positions(head: Tensor, stride: int, et: EnvTrack) -> Tuple[Tensor, 
 
 
 def _cursor(head: Tensor, stride: int, et: EnvTrack) -> Tuple[Tensor, Tensor]:
-    """(buffer_fill, exhausted) of cursors at `head`."""
     _, in_plan = _buffer_positions(head, stride, et)
     exhausted = torch.zeros_like(in_plan[:, 0]) if et.track.is_loop else head >= et.length
     return in_plan.sum(-1, dtype=torch.int32), exhausted
+
+
+def cursor(planner: LocalPlannerState, env_state: EnvState,
+           env_params: EnvParams) -> Tuple[Tensor, Tensor]:
+    """([B] int32 buffered entries inside the plan, [B] bool an open plan's
+    head past its end) of each env's cursor."""
+    return _cursor(planner.head, planner.sampling_stride,
+                   env_track(env_params.track, env_state.route_id))
 
 
 def run_step(
@@ -122,6 +120,7 @@ def run_step(
     et = env_track(track, env_state.route_id)
     veh = env_state.vehicle
 
+    _, exhausted = _cursor(planner.head, planner.sampling_stride, et)
     target_pos = et.gather(track.pos, planner.head)
     target_opt = et.gather(track.maneuver, planner.head)
     action, controller = planner.controller.run_step_to_point(
@@ -136,11 +135,8 @@ def run_step(
     new_head = (planner.head + (max_index + 1) * planner.sampling_stride).to(torch.int32)
 
     stop = torch.tensor([0.0, 0.0, 1.0], device=action.device)
-    action = torch.where(planner.exhausted[:, None], stop,
+    action = torch.where(exhausted[:, None], stop,
                          torch.cat([action, torch.zeros_like(action[:, :1])], -1))
-    target_opt = torch.where(planner.exhausted, int(RoadOption.VOID), target_opt).to(torch.int32)
-
-    fill, exhausted = _cursor(new_head, planner.sampling_stride, et)
-    planner = dataclasses.replace(planner, head=new_head, buffer_fill=fill, exhausted=exhausted,
-                                  controller=controller)
+    target_opt = torch.where(exhausted, int(RoadOption.VOID), target_opt).to(torch.int32)
+    planner = dataclasses.replace(planner, head=new_head, controller=controller)
     return action, planner, target_opt

@@ -322,6 +322,7 @@ def make_route_bank(
     capacity: int = 1024,
     min_length: float = 150.0,
     seed: int = 0,
+    half_width: float = track_mod.DEFAULT_HALF_WIDTH,
     props: bool = False,
     device="cuda",
 ) -> TrackData:
@@ -329,7 +330,10 @@ def make_route_bank(
     `min_length` waypoints, cut to `capacity` and padded with the last
     waypoint) as one TrackData on `device`: leading route axis, `length`
     [R] int32, open (`is_loop` False). With `props`, route i is dressed
-    with props seeded `seed * 1009 + i`."""
+    with props seeded `seed * 1009 + i`. `half_width` is the JAX
+    signature's: every slot takes its route's own widths, in both
+    packages, so it changes nothing."""
+    del half_width
     rng = np.random.default_rng(seed)
     n_nodes = len(town.nodes)
     n_slots = capacity // track_mod.PROP_STRIDE

@@ -195,12 +195,12 @@ class VAE(nn.Module):
     `source_shape` / `target_shape` are (H, W, C); without `target_shape`
     the model is the encoder alone."""
 
-    def __init__(self, source_shape: Tuple[int, int, int] = (80, 160, 3), z_dim: int = 64,
-                 features: Sequence[int] = (32, 64, 128, 256),
-                 generator: torch.Generator | None = None,
-                 compute_dtype: torch.dtype = torch.float32,
+    def __init__(self, source_shape: Tuple[int, int, int] = (80, 160, 3),
                  target_shape: Optional[Tuple[int, int, int]] = None,
-                 model_type: str = "cnn"):
+                 z_dim: int = 64, model_type: str = "cnn",
+                 compute_dtype: torch.dtype = torch.float32,
+                 features: Sequence[int] = (32, 64, 128, 256),
+                 generator: torch.Generator | None = None):
         super().__init__()
         if model_type not in ("cnn", "mlp"):
             raise ValueError(f"unknown VAE model_type {model_type!r}")

@@ -12,7 +12,9 @@ render the camera (ops/rasterizer, CUDA kernels on the card), encode with
 the frozen VAE. `source="seg"` feeds the seg frame scaled by 1/12;
 `source="rgb"` the shaded pseudo-RGB frame (the reference's deployed
 observation path). Both on a shared track and (`banked=True`, the route
-and lap-bank envs) on a track bank.
+and lap-bank envs) on a track bank. `create_encode_state_fn` is the same
+observation for one env (a batch of one, as the interactive envs hold it):
+[z + m], from the shared track or the env's bank row.
 """
 
 from __future__ import annotations
@@ -138,3 +140,26 @@ def create_encode_batch_fn(
         return torch.cat(feats, 1).to(torch.float32)
 
     return encode_batch
+
+
+def create_encode_state_fn(
+    model: VAE,
+    measurements_to_include=("steer", "throttle", "speed"),
+    cam: rasterizer.CameraConfig = rasterizer.CameraConfig(),
+    source: str = "seg",
+) -> Callable[[EnvState, EnvParams], Tensor]:
+    """Latent observation of a single env: a function (state, params) ->
+    [z + m] over a batch-of-one state, create_encode_batch_fn's row 0 (on
+    a bank the env's own row, where the JAX package slices the route out
+    of the bank first)."""
+    batch_fns = {
+        banked: create_encode_batch_fn(model, measurements_to_include, cam, banked, source)
+        for banked in (False, True)
+    }
+
+    def encode_state(state: EnvState, params: EnvParams) -> Tensor:
+        if state.batch_size != 1:
+            raise ValueError(f"expected a batch of one env, got {state.batch_size}")
+        return batch_fns[params.track.banked](state, params)[0]
+
+    return encode_state

@@ -33,7 +33,9 @@ source): the same ground pass, then the composite's depth-and-sky mode
 csrc/composite.cu; plain `composite_plain(..., return_depth_sky=True)`),
 then the palette, depth fog and sky gradient in plain torch (`_shade_rgb`,
 elementwise as in the JAX package). It takes a shared track or a bank.
-`render_rgb_and_semantic` is the batch-of-one form that cli.collect_data calls.
+`render_semantic` and `render_rgb` are the single-env forms (a batch of
+one, as the interactive envs hold it), and `render_rgb_and_semantic` gives
+both from one render (cli.collect_data).
 
 `render_batch_pose` is a third ground pass for a shared track: the window
 fetch and the camera rotation move into the kernel (`ground_pass_pose`,
@@ -742,6 +744,34 @@ def render_rgb_batch(
     return _rgb_and_classes(states, params, cam, style, noise)[0]
 
 
+def _one_env(state: EnvState) -> None:
+    if state.batch_size != 1:
+        raise ValueError(f"expected a batch of one env, got {state.batch_size}")
+
+
+def render_semantic(
+    state: EnvState, params: EnvParams, cam: CameraConfig = CameraConfig(),
+    style: RoadStyle = RoadStyle(),
+) -> Tensor:
+    """One env's seg frame [H, W] int32 from a batch of one: render_batch,
+    or render_batch_banked on the env's row when params.track is a bank."""
+    _one_env(state)
+    render = render_batch_banked if params.track.banked else render_batch
+    return render(state, params, cam, style)[0]
+
+
+def render_rgb(
+    state: EnvState, params: EnvParams, cam: CameraConfig = CameraConfig(),
+    style: RoadStyle = RoadStyle(), generator: Tensor | torch.Generator | None = None,
+) -> Tensor:
+    """One env's shaded pseudo-RGB frame [H, W, 3] float32 in [0, 1] from a
+    batch of one (the shared track or the env's bank row). `generator`
+    draws the texture noise; a [1, H, W, 3] standard-normal tensor is taken
+    as the draw itself."""
+    _one_env(state)
+    return render_rgb_batch(state, params, cam, style, generator)[0]
+
+
 def render_rgb_and_semantic(
     state: EnvState, params: EnvParams, cam: CameraConfig = CameraConfig(),
     style: RoadStyle = RoadStyle(), noise: Tensor | torch.Generator | None = None,
@@ -750,7 +780,6 @@ def render_rgb_and_semantic(
     of one, in one render: the classes the RGB frame was shaded from are
     the seg frame (the depth-and-sky composite's classes equal the
     class-only composite's)."""
-    if state.batch_size != 1:
-        raise ValueError(f"expected a batch of one env, got {state.batch_size}")
+    _one_env(state)
     rgb, cls = _rgb_and_classes(state, params, cam, style, noise)
     return rgb[0], cls[0].view(cam.height, cam.width)

@@ -12,9 +12,11 @@ Ported: `obs` "vector" (and `obs_fn` "vector_npc"), "latent" (seg or rgb
 `vae_source`) and "pixels" (the pixel agent trained with the joint VAE,
 training/pixels.py, warm-started from a VAE on fresh runs), `env_kind`
 "lap", "route" and "lap_bank", NPC traffic on the lap env, on one device
-or data parallel over `num_devices` ranks (parallel/train_dp.py). The rest
-raises NotImplementedError naming the ROADMAP queue-A item that brings it.
-`Trainer(..., device=, dp=)` are the additions: the port runs on the card
+or data parallel over `num_devices` ranks (parallel/train_dp.py), and
+`record_eval`: after each eval a greedy episode through the interactive
+env (envs/gym_api, training/eval_host) is written to
+videos/iteration<N>.avi (`record_eval_video`, which cli.run_eval also
+calls). `Trainer(..., device=, dp=)` are the additions: the port runs on the card
 unless the caller asks for the CPU, and a data-parallel Trainer is one
 rank of a process group that the caller set up (cli.train spawns the
 ranks, or joins torchrun's group) and passes as `dp`.
@@ -26,7 +28,8 @@ writes checkpoints, best_score.json and metrics and prints; the others wait
 at a barrier after each save. The greedy eval is data parallel when
 `eval_envs` divides over the ranks, else rank 0 runs it alone and the
 others take its metrics, so every rank makes the same best-checkpoint and
-freeze decisions.
+freeze decisions. Rank 0 alone records the eval video; the others wait at
+a barrier after it.
 """
 
 from __future__ import annotations
@@ -66,7 +69,7 @@ class TrainerSettings:
     models_root: str = "models"
     num_iterations: int = 0  # <= 0: train forever
     eval_interval: int = 5  # iterations between evals; <= 0 disables them
-    record_eval: bool = False  # eval videos (ROADMAP A12)
+    record_eval: bool = False  # a video of one greedy episode after each eval
     eval_envs: int = 4
     # 3 laps (~3.5 km) at 15+ km/h: a smaller cap truncates a slow but
     # stable policy's episodes and under-reports laps.
@@ -119,9 +122,7 @@ class TrainerSettings:
 
 
 def check_ported(settings: TrainerSettings, config: ppo.PPOConfig) -> None:
-    """Raise NotImplementedError for what this port does not run yet."""
-    if settings.record_eval:
-        raise NotImplementedError("record_eval (eval videos) is not ported yet (ROADMAP A12)")
+    """Raise for settings the Trainer cannot run."""
     if settings.policy_dtype not in POLICY_DTYPES:
         raise ValueError(f"unknown policy_dtype {settings.policy_dtype!r}")
 
@@ -499,6 +500,12 @@ class Trainer:
             f"distance {eval_metrics['eval/distance_traveled']:.0f} m, "
             f"laps {eval_metrics['eval/laps_completed']:.2f}"
         )
+        if self.settings.record_eval:
+            if self.is_main:
+                self.record_eval_video(os.path.join(self.video_dir, f"iteration{it}.avi"))
+                if self._watchdog is not None:
+                    self._watchdog.beat()
+            self._barrier()
         eval_score = self._eval_score(eval_metrics)
         if eval_score > self.best_eval_score:
             self.best_eval_score = eval_score
@@ -508,6 +515,73 @@ class Trainer:
             self._save(self.checkpointer, it)  # best-only
         if self.settings.freeze_on_solve > 0:
             self._update_freeze(it, eval_metrics)
+
+    def record_eval_video(self, filename: str, max_steps: int = 1500) -> float:
+        """One greedy episode through the interactive env (a CarlaLapEnv, or
+        a CarlaRouteEnv on the route env), rendered to `filename`; returns
+        the episode's reward. The env (make_video_env) is built on first
+        use, with the JAX Trainer's settings."""
+        from carla_ppo_tpu_torch.training.eval_host import run_eval
+
+        if not hasattr(self, "_video_env"):
+            os.environ.setdefault("SDL_VIDEODRIVER", "dummy")
+            self._video_env = self.make_video_env()
+        return run_eval(self._video_env, self._predict_fn(), video_filename=filename,
+                        max_steps=max_steps)
+
+    def make_video_env(self):
+        """The interactive env of record_eval_video, on the Trainer's device."""
+        from carla_ppo_tpu_torch.envs.gym_api import CarlaLapEnv, CarlaRouteEnv
+
+        cls = CarlaRouteEnv if self.config.env_kind == "route" else CarlaLapEnv
+        return cls(
+            obs_res=(160, 80),
+            encode_state_fn="vector" if self.latent_obs is None else None,
+            action_smoothing=self.settings.action_smoothing,
+            fps=self.settings.fps,
+            track_seed=self.settings.track_seed,
+            reward_fn=self.settings.reward_fn,
+            device=self.device,
+        )
+
+    def _predict_fn(self):
+        """predict_fn(env) -> (greedy action [2] numpy, value float) of the
+        current model on the env's single state: the pixel policy on the
+        rendered frame, the vector observation, or the frozen-VAE latent.
+        On a bank (the route env) every observation reads the state's own
+        bank row."""
+        model = self.train_state.model
+
+        if self.obs_mode == "pixels":
+            from carla_ppo_tpu_torch.envs.observations import measurements
+            from carla_ppo_tpu_torch.ops import rasterizer
+
+            cam = self.pix.cam
+
+            def observe(state, params):
+                cls = rasterizer.render_semantic(state, params, cam)
+                return (pixels.frames_input(cls[None]), measurements(state))
+        elif self.latent_obs is None:
+            from carla_ppo_tpu_torch.envs import lap_env
+
+            obs_fn = self.config.obs_fn
+
+            def observe(state, params):
+                return (lap_env.observe(state, params, obs_fn),)
+        else:
+            encode = vae_common.create_encode_state_fn(self.latent_obs.vae_model,
+                                                       source=self.latent_obs.source)
+
+            def observe(state, params):
+                return (encode(state, params)[None],)
+
+        @torch.no_grad()
+        def fn(env):
+            obs = observe(env.state, env.params)
+            out = model.policy_value(*obs) if self.obs_mode == "pixels" else model(*obs)
+            return out[0][0].cpu().numpy(), float(out[2][0])
+
+        return fn
 
     def train(self, num_iterations: Optional[int] = None) -> Dict[str, float]:
         """The main loop; returns the last iteration's metrics."""
@@ -578,5 +652,7 @@ class Trainer:
         if self._watchdog is not None:
             self._watchdog.stop()
         self.writer.close()
+        if hasattr(self, "_video_env"):
+            self._video_env.close()
         self.checkpointer.close()
         self.autosaver.close()

@@ -143,13 +143,15 @@ def adam_init(params: Sequence[Tensor]) -> AdamState:
     )
 
 
-def schedule_value(schedule: Tuple[Tuple[int, float], ...], default: float, at: Tensor) -> Tensor:
-    """Piecewise-constant value of `schedule` at `at` (a device scalar)."""
+def schedule_value(schedule: Tuple[Tuple[int, float], ...], default: float,
+                   iteration: Tensor) -> Tensor:
+    """Piecewise-constant value of `schedule` at `iteration` (a device
+    scalar)."""
     if not schedule:
-        return torch.full((), default, dtype=torch.float32, device=at.device)
-    val = torch.full((), schedule[0][1], dtype=torch.float32, device=at.device)
+        return torch.full((), default, dtype=torch.float32, device=iteration.device)
+    val = torch.full((), schedule[0][1], dtype=torch.float32, device=iteration.device)
     for start, v in schedule[1:]:
-        val = torch.where(at >= start, torch.full_like(val, v), val)
+        val = torch.where(iteration >= start, torch.full_like(val, v), val)
     return val
 
 
@@ -603,8 +605,8 @@ def train_iteration(
     env_params: EnvParams,
     config: PPOConfig,
     latent_obs: LatentObs | None = None,
-    freeze: Tensor | None = None,
     rollout_model: ActorCritic | None = None,
+    freeze: Tensor | None = None,
     dp: DataParallel | None = None,
 ) -> Tuple[TrainState, EnvState, Dict[str, Tensor]]:
     """One PPO iteration: rollout(horizon) -> GAE -> epochs of updates (the

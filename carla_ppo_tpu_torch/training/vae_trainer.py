@@ -31,9 +31,13 @@ class VAETrainConfig:
     kl_tolerance: float = 0.0
     loss_type: str = "bce"
     learning_rate: float = 1e-4
+    # lr_decay and val_portion are the JAX config's fields; neither package
+    # reads them (the lr stays constant, the CLI splits 10%).
+    lr_decay: float = 1.0
     batch_size: int = 100
     epochs: int = 100
     early_stop_patience: int = 10
+    val_portion: float = 0.1
     model_type: str = "cnn"
 
 
@@ -45,9 +49,8 @@ def make_vae(
 ) -> VAE:
     """The whole VAE (target_shape defaults to the source's), initialised
     from `generator` as flax initialises it (LeCun normal, zero biases)."""
-    return VAE(source_shape=source_shape, z_dim=config.z_dim,
-               target_shape=tuple(target_shape or source_shape),
-               model_type=config.model_type, generator=generator)
+    return VAE(source_shape=source_shape, target_shape=tuple(target_shape or source_shape),
+               z_dim=config.z_dim, model_type=config.model_type, generator=generator)
 
 
 def make_optimizer(model: VAE, config: VAETrainConfig) -> torch.optim.Adam:

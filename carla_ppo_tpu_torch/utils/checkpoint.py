@@ -43,8 +43,9 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state: Any) -> None:
-        tree = state.checkpoint_tree() if hasattr(state, "checkpoint_tree") else state
+    def save(self, step: int, tree: Any) -> None:
+        if hasattr(tree, "checkpoint_tree"):  # a TrainState
+            tree = tree.checkpoint_tree()
         tmp = tempfile.mkdtemp(prefix=f".tmp-{int(step)}-", dir=self.directory)
         try:
             torch.save(tree, os.path.join(tmp, STATE_FILE))

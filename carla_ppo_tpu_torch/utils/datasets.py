@@ -44,13 +44,12 @@ def load_images(
     return np.stack([preprocess_fn(read_png(os.path.join(dir_path, n))) for n in names])
 
 
-VAL_PORTION = 0.1
-
-
-def train_val_split(images: np.ndarray, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
-    """Shuffled split, VAL_PORTION of the frames (at least one) for
+def train_val_split(
+    images: np.ndarray, val_portion: float = 0.1, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Shuffled split, `val_portion` of the frames (at least one) for
     validation."""
     rng = np.random.default_rng(seed)
     idx = rng.permutation(len(images))
-    n_val = max(int(len(images) * VAL_PORTION), 1)
+    n_val = max(int(len(images) * val_portion), 1)
     return images[idx[n_val:]], images[idx[:n_val]]

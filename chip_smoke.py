@@ -150,9 +150,35 @@ Phases, one line each; any failure raises and exits non-zero:
      with the light's TRAFFICSIGNS pole in it, an always-red table stops
      every agent short of its light within 600 steps, an always-green one
      lets every agent pass (tests/test_traffic_lights.py's contracts);
- 19. the kernels line (JSON, one row per TPU kernel, and a row for the
+ 19. [video] greedy episodes of the converted agents through the
+     interactive envs (envs/gym_api, each a batch of one env on the card)
+     and eval_host.run_eval, each frame the env's spectator view (the
+     pygame-free half of render: the card's machine has no pygame) written
+     to an .avi: latent_agent on CarlaLapEnv for 1500 steps, route_latent
+     on CarlaRouteEnv for 500 (on the route the JAX reference's reset
+     drew), rgb_latent for 300 (the depth-and-sky mode at B=1) and
+     pixel_turnkey for 300. Each is held against the JAX Trainer's
+     record_eval_video of the same orbax checkpoint at the same cap
+     (<agent>/reference_video_<steps>.json, made on a CPU by
+     scripts/export_torch_checkpoints.py --reference_video <steps>): the
+     same termination reason and step count, distance and reward within
+     2%, no failed episode; the .avi reads back with steps + 1 frames of
+     180x320x3. After the reset and every 100 steps the episode's own
+     kernel frames of that state (the 80x160 dashcam, the 180x320 / -15
+     deg chase camera, banked on the route env) and, on the RGB episode,
+     render_rgb's depth-and-sky frame must equal the plain versions, 0
+     mismatched pixels; the ground pass, the composite and the
+     depth-and-sky mode must launch, and the ground pass's launches,
+     counted by frame size at the launch and by episode, must make up the
+     phase's under the v4 (chase), v3d (the route episode, banked) and v3c
+     (B=1 dashcam) contracts, each above 0. Prints each episode's single-env
+     steps/s and its ms per step in the env step, the dashcam render, the
+     spectator render and the predict (CUDA events and host time), then
+     each kernel's ms at B=1 on those contracts (CUDA events);
+ 20. the kernels line (JSON, one row per TPU kernel, and a row for the
      composite's depth-and-sky mode; the camera rows also carry the
-     [dp] and [agents] launch counts), then the last line
+     [dp], [agents] and [video] launch counts, and the rows of the B=1
+     contracts their `b1_ms`), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Float32 matmuls and convolutions run in full float32 (TF32 off for both).
@@ -198,6 +224,7 @@ DEPROP_VAE = os.path.join(REPO, "models", "torch", "vae_models",
 RGB_DEPROP_VAE = os.path.join(REPO, "models", "torch", "vae_models",
                               "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data")
 LATENT_AGENT = os.path.join(REPO, "models", "torch", "latent_agent")
+ROUTE_AGENT = os.path.join(REPO, "models", "torch", "route_latent")
 PIXEL_AGENT = os.path.join(REPO, "models", "torch", "pixel_turnkey")
 RGB_AGENT = os.path.join(REPO, "models", "torch", "rgb_latent")
 TRAFFIC_AGENT = os.path.join(REPO, "models", "torch", "traffic_agent")
@@ -224,6 +251,15 @@ PIXEL_EVAL_STEPS = 1024
 DP_WORLD = 2
 DP_ITERATIONS = 2
 DP_DEADLINE_S = 600
+# [video]: (tag, agent, TrainerSettings fields, PPOConfig fields, greedy steps)
+VIDEO_EPISODES = (
+    ("lap", LATENT_AGENT, dict(vae_model=DEPROP_VAE), {}, 1500),
+    ("route", ROUTE_AGENT, dict(vae_model=DEPROP_VAE), {"env_kind": "route"}, 500),
+    ("rgb", RGB_AGENT, dict(vae_model=RGB_DEPROP_VAE, vae_source="rgb"), {}, 300),
+    ("pixels", PIXEL_AGENT, dict(obs="pixels"), {}, 300),
+)
+VIDEO_CHECK_EVERY = 100  # steps between the kernel-vs-plain checks of an episode's frames
+VIDEO_TOLERANCE = 0.02  # distance and reward against the JAX CPU episode
 AGENT_STEPS = 1200  # 40 s at 30 fps
 AGENT_RENDER_EVERY = 10
 AGENT_SPEED_KMH = 18.0
@@ -735,8 +771,11 @@ def main() -> int:
     # the scripted agents with traffic lights.
     dp_launches = dp_phase(torch, smi)
     agents_launches = agents_phase(torch, RC, smi, dev)
+    # 19. Greedy episodes of the converted agents through the interactive
+    # envs, to video, each env a batch of one.
+    video_launches, video_contracts, b1_ms = video_phase(torch, RC, smi, dev)
 
-    # 19. Results: one row per TPU kernel.
+    # 20. Results: one row per TPU kernel.
     def row(name, source, replaces, launches, key, err):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}",
                 "replaces": f"{PALLAS}:{replaces}", "launches": launches, "max_abs_err": err,
@@ -767,13 +806,25 @@ def main() -> int:
     ]
     for k in kernels[:2]:
         k["phase_launches"] = {**{f"dp rank {r}": n[k["name"]] for r, n in enumerate(dp_launches)},
-                               "agents": agents_launches[k["name"]]}
+                               "agents": agents_launches[k["name"]], "video": video_launches[k["name"]]}
+    # [video] launches of ground_pass.cu by contract (they sum to the
+    # phase's): the chase camera of a shared track (v4), every frame of
+    # the route episode (v3d, banked), B=1 dashcam frames of a shared
+    # track (v3c).
+    for k, contract in ((2, "v4"), (3, "v3d"), (4, "v3c")):
+        kernels[k]["phase_launches"] = {"video": video_contracts[contract]}
+    kernels[6]["phase_launches"] = {"video": video_launches["composite_depth_sky"]}
+    # ... and each contract's time at B=1.
+    for k, key in ((1, "composite 80x160"), (2, "ground_pass 180x320"),
+                   (3, "ground_pass banked 80x160"), (4, "ground_pass 80x160"),
+                   (6, "composite_depth_sky 80x160")):
+        kernels[k]["b1_ms"] = b1_ms[key]
     log(f"[launches] lap_bank path: ground_pass {bank_launches['ground_pass']}, "
         f"composite {bank_launches['composite']}")
     log(f"[launches] trainer path: {trainer_launches}; pretrained path: {pretrained_launches}; "
         f"rgb_pretrained path: {rgb_eval_launches}; traffic path: {traffic_launches}; "
         f"vae_pipeline path: {vae_launches}; pixels path: {pixel_launches}; pixel_pretrained "
-        f"path: {pixel_eval_launches}")
+        f"path: {pixel_eval_launches}; video phase: {video_launches}")
     log(json.dumps({"kernels": kernels}))
     over = [(k["name"], k["bound_share"]) for k in kernels if k["bound_share"] > 1.05]
     if over:
@@ -1493,6 +1544,246 @@ def vae_pipeline_phase(torch, RC, smi, states, params):
     if any(launches[k] <= 0 for k in ("ground_pass", "composite_depth_sky")):
         raise AssertionError(f"a camera kernel never launched in the VAE pipeline: {launches}")
     return launches
+
+
+class FrameView:
+    """An interactive env as eval_host.run_eval drives it, with render(mode)
+    answered by the env's pygame-free half (the card's machine has no
+    pygame): the spectator frame, RGB uint8 from the chase camera. After
+    the reset and every VIDEO_CHECK_EVERY-th step `check(env)` holds that
+    state's frames against the plain versions. `route_id`: the route the
+    JAX reference's reset drew; reset re-spawns there (eval spawns at the
+    route's start), so both packages drive the same route."""
+
+    def __init__(self, env, route_id, check):
+        self.env, self.route_id, self.check = env, route_id, check
+        self.steps = 0
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+    def reset(self, is_training: bool = True):
+        import torch
+
+        from carla_ppo_tpu_torch.envs import route_env
+
+        env = self.env
+        obs = env.reset(is_training)
+        if self.route_id is not None:
+            dev = env.device
+            env.state = route_env.reset_on_routes(
+                env.params, torch.tensor([self.route_id], dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.tensor([is_training], device=dev))
+            env.extra_info = []
+            obs = env.step(None)[0]
+        self.steps = 0
+        return obs
+
+    def step(self, action):
+        out = self.env.step(action)
+        self.steps += 1
+        return out
+
+    def render(self, mode: str = "human"):
+        spec, _ = self.env.render_frames()
+        self.env.extra_info = []
+        if self.steps % VIDEO_CHECK_EVERY == 0:
+            self.check(self.env)
+        return spec
+
+
+def video_phase(torch, RC, smi, dev):
+    """[video]: greedy episodes of the converted agents through the
+    interactive envs (envs/gym_api) and eval_host.run_eval, each to an .avi
+    in a temporary directory, held against the JAX Trainer's
+    record_eval_video of the same orbax checkpoint at the same cap
+    (<agent>/reference_video_<steps>.json): the same termination reason and
+    step count, distance and reward within VIDEO_TOLERANCE. The .avi reads
+    back with steps + 1 frames of 180x320x3. After the reset and every
+    VIDEO_CHECK_EVERY steps the episode's own kernel frames (the dashcam
+    and the chase camera, banked on the route env) equal the plain
+    versions, and on the RGB episode render_rgb's depth-and-sky frame too;
+    the ground pass, the composite and the depth-and-sky mode must launch.
+    The ground pass's launches are split by contract where they are
+    counted (RC.GROUND_PASS_SHAPES, per episode): the route episode's, all
+    banked (v3d), which must equal its ground-pass launches and be above
+    0; the other episodes' B=1 chase (v4) and dashcam (v3c) frames; the
+    three must sum to the phase's launches. Then times each kernel at B=1
+    on these contracts. Returns (launches over the phase, ground-pass
+    launches by contract, ms per B=1 launch by kernel and camera)."""
+    import cv2
+
+    from carla_ppo_tpu_torch.envs.types import TerminationReason
+    from carla_ppo_tpu_torch.ops import rasterizer as R
+    from carla_ppo_tpu_torch.training.eval_host import run_eval
+    from carla_ppo_tpu_torch.training.loop import Trainer, TrainerSettings
+    from carla_ppo_tpu_torch.training.ppo import PPOConfig
+
+    consts = R.style_constants(R.RoadStyle())
+    mismatched, checked = defaultdict(int), defaultdict(int)
+
+    def plain_classes(state, params, cam):
+        win, pay = R.prep_windows(state, params, cam)
+        slab, stripes, sky_px, depth = R._device_layout(cam, str(dev))
+        ground = R.ground_pass_plain(win, pay, slab, stripes, sky_px, cam.height * cam.width, consts)
+        rows = R.prep_candidates(state, params, cam)
+        return ground, rows, depth, R.composite_plain(rows, depth, ground, cam.width)
+
+    counted = {}
+
+    def check(env, rgb: bool):
+        tag = "banked " if env.params.track.banked else ""
+        counted["state " + tag] = (env.state, env.params, env._dash_cam, env._spec_cam)
+        _, _, _, dash = plain_classes(env.state, env.params, env._dash_cam)
+        mismatched[tag + "dash 80x160"] += int((env._dash.view(1, -1) != dash).sum())
+        checked[tag + "dash 80x160"] += 1
+        _, _, _, chase = plain_classes(env.state, env.params, env._spec_cam)
+        chase_rgb = (R.seg_to_rgb(chase.view(env._spec_cam.height, env._spec_cam.width)) * 255)
+        chase_rgb = chase_rgb.to(torch.uint8).cpu().numpy()
+        mismatched[tag + "chase 180x320"] += int((env.viewer_image != chase_rgb).any(-1).sum())
+        checked[tag + "chase 180x320"] += 1
+        if rgb:  # render_rgb's kernel launches, counted out of the phase's
+            saved, saved_shapes = dict(RC.LAUNCHES), dict(RC.GROUND_PASS_SHAPES)
+            got = R.render_rgb(env.state, env.params, env._dash_cam)
+            ground, rows, depth, _ = plain_classes(env.state, env.params, env._dash_cam)
+            want = R._shade_rgb(*R.composite_plain(rows, depth, ground, env._dash_cam.width,
+                                                   return_depth_sky=True), env._dash_cam)[0]
+            RC.LAUNCHES.update(saved)
+            RC.GROUND_PASS_SHAPES.clear()
+            RC.GROUND_PASS_SHAPES.update(saved_shapes)
+            mismatched["depth-and-sky 80x160"] += int((got != want).any(-1).sum())
+            checked["depth-and-sky 80x160"] += 1
+
+    chase_hw, dash_hw = 180 * 320, 80 * 160
+    contracts = {"v4": 0, "v3d": 0, "v3c": 0}
+    RC.reset_launch_counts()
+    with in_temp_dir() as tmp:
+        for tag, agent_dir, settings_kw, config_kw, steps in VIDEO_EPISODES:
+            name = os.path.basename(agent_dir)
+            with open(os.path.join(agent_dir, f"reference_video_{steps}.json")) as f:
+                ref = json.load(f)
+            if ref["max_steps"] != steps:
+                raise AssertionError(f"the reference episode is of another cap: {ref['command']}")
+            want = ref["episode"]
+            shutil.copytree(agent_dir, os.path.join(tmp, "models", "torch", name))
+            settings = TrainerSettings(model_name=f"torch/{name}", models_root="models",
+                                       eval_interval=0, heldout_eval=0, **settings_kw)
+            # The episode's launches include the env's first render.
+            before, shapes_before = RC.LAUNCHES["ground_pass"], dict(RC.GROUND_PASS_SHAPES)
+            trainer = Trainer(settings, PPOConfig(num_envs=8, **config_kw), device=dev)
+            env = trainer.make_video_env()
+            if type(env).__name__ != want["env"]:
+                raise AssertionError(f"{type(env).__name__} where the reference drove {want['env']}")
+            view = FrameView(env, want["route_id"] if want["env"] == "CarlaRouteEnv" else None,
+                             lambda e, rgb=(tag == "rgb"): check(e, rgb))
+            predict = trainer._predict_fn()
+            predict_spans = []
+
+            def timed_predict(e):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                h0 = time.perf_counter()
+                start.record()
+                out = predict(e)
+                end.record()
+                predict_spans.append((start, end, time.perf_counter() - h0))
+                return out
+
+            video = os.path.join(tmp, f"{tag}.avi")
+            stages = [(env, "_env_step", "env step"), (env, "_render_dash", "dash render"),
+                      (env, "render_frames", "spectator render")]
+            with timed_stages(torch, stages) as spans:
+                h0 = time.perf_counter()
+                reward = run_eval(view, timed_predict, video_filename=video, max_steps=steps)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - h0
+            spans["predict"] = predict_spans
+            shapes = {k: n - shapes_before.get(k, 0) for k, n in RC.GROUND_PASS_SHAPES.items()}
+            episode_launches = RC.LAUNCHES["ground_pass"] - before
+            if env.params.track.banked != (want["env"] == "CarlaRouteEnv"):
+                raise AssertionError(f"the {tag} episode's track is banked={env.params.track.banked}")
+            if env.params.track.banked:
+                if episode_launches <= 0:
+                    raise AssertionError(f"the {tag} episode launched no banked ground pass")
+                contracts["v3d"] += episode_launches
+            else:
+                if shapes.get((1, chase_hw), 0) + shapes.get((1, dash_hw), 0) != episode_launches:
+                    raise AssertionError(f"the {tag} episode launched the ground pass at other "
+                                         f"sizes than B=1 80x160 and 180x320: {shapes}")
+                contracts["v4"] += shapes.get((1, chase_hw), 0)
+                contracts["v3c"] += shapes.get((1, dash_hw), 0)
+            log(f"[launches] {tag} episode: ground_pass {episode_launches}, by (B, H*W) {shapes}")
+            s = env.state
+            got = {"reward": reward, "distance_traveled": float(s.distance_traveled),
+                   "laps_completed": float(s.laps_completed), "step_count": int(s.step_count),
+                   "termination_reason": int(s.termination_reason)}
+            cap = cv2.VideoCapture(video)
+            frames = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+            ok, first = cap.read()
+            cap.release()
+            trainer.close()
+            env.close()
+            n = view.steps
+            split = "; ".join(
+                f"{k} {span_ms(v)[0] / max(len(v), 1):.3f} ms events / {span_ms(v)[1] / max(len(v), 1):.3f}"
+                f" ms host per call ({len(v)} calls)" for k, v in spans.items())
+            gaps = {k: got[k] / want[k] - 1.0 if want[k] else got[k] - want[k]
+                    for k in ("reward", "distance_traveled")}
+            log(f"[video] {smi}: {tag} episode of torch/{name} ({type(env).__name__}"
+                + (f", route {want['route_id']}" if view.route_id is not None else "")
+                + f"): {n} steps in {seconds:.3f} s = {n / seconds:.2f} single-env steps/s; "
+                f"reward {got['reward']:.6g} (JAX CPU {want['reward']:.6g}, {100 * gaps['reward']:+.4f}%), "
+                f"distance {got['distance_traveled']:.6g} m (JAX CPU {want['distance_traveled']:.6g} m, "
+                f"{100 * gaps['distance_traveled']:+.4f}%), laps {got['laps_completed']:.6g} (JAX CPU "
+                f"{want['laps_completed']:.6g}), step count {got['step_count']} (JAX CPU "
+                f"{want['step_count']}), termination {TerminationReason(got['termination_reason']).name} "
+                f"(JAX CPU {TerminationReason(want['termination_reason']).name}); video {frames} frames "
+                f"of {None if not ok else first.shape}")
+            log(f"[video] {smi}: {tag} ms per step by part: {split}")
+            if got["termination_reason"] != want["termination_reason"] or (
+                    got["step_count"] != want["step_count"]):
+                raise AssertionError(f"the {tag} episode ended otherwise than the JAX reference's")
+            if any(abs(g) > VIDEO_TOLERANCE for g in gaps.values()):
+                raise AssertionError(f"the {tag} episode is not within {VIDEO_TOLERANCE:.0%} of the "
+                                     f"JAX reference: {gaps}")
+            if got["termination_reason"] not in (int(TerminationReason.RUNNING),
+                                                 int(TerminationReason.LAPS_DONE)):
+                raise AssertionError(f"the {tag} episode failed: {got}")
+            if frames != n + 1 or not ok or first.shape != (180, 320, 3):
+                raise AssertionError(f"the {tag} video holds {frames} frames of "
+                                     f"{None if not ok else first.shape}, not {n + 1} of 180x320x3")
+    launches = dict(RC.LAUNCHES)
+    # The kernels at B=1 on the last checked states (these launches are
+    # not the phase's).
+    b1_ms = {}
+    for tag, (state, params, dash_cam, spec_cam) in ((k[6:], v) for k, v in counted.items()
+                                                      if k.startswith("state ")):
+        for cam in (dash_cam, spec_cam):
+            win, pay = R.prep_windows(state, params, cam)
+            slab, stripes, sky_px, depth = R._device_layout(cam, str(dev))
+            hw = cam.height * cam.width
+            b1_ms[f"ground_pass {tag}{cam.height}x{cam.width}"] = cuda_ms(
+                torch, lambda: RC.ground_pass_cuda(win, pay, slab, stripes, sky_px, hw, consts), 200)
+            if cam is dash_cam and not tag:
+                ground = RC.ground_pass_cuda(win, pay, slab, stripes, sky_px, hw, consts)
+                rows = R.prep_candidates(state, params, cam)
+                b1_ms["composite 80x160"] = cuda_ms(
+                    torch, lambda: RC.composite_cuda(rows, depth, ground, cam.width), 200)
+                b1_ms["composite_depth_sky 80x160"] = cuda_ms(
+                    torch, lambda: RC.composite_depth_sky_cuda(rows, depth, ground, cam.width), 200)
+    log(f"[timing] {smi}: the kernels at B=1 (CUDA events, 200 launches each): "
+        + ", ".join(f"{k} {v:.6f} ms" for k, v in sorted(b1_ms.items())))
+    log(f"[video] kernel frames against the plain versions, mismatched pixels: "
+        + ", ".join(f"{k} {mismatched[k]} in {checked[k]} frames" for k in sorted(checked)))
+    log(f"[launches] video phase: {launches}; ground_pass by contract: {contracts}")
+    if any(mismatched.values()) or not checked:
+        raise AssertionError(f"a B=1 kernel frame disagrees with its plain version: {dict(mismatched)}")
+    if any(launches[k] <= 0 for k in ("ground_pass", "composite", "composite_depth_sky")):
+        raise AssertionError(f"a camera kernel never launched in the video phase: {launches}")
+    if sum(contracts.values()) != launches["ground_pass"] or not all(contracts.values()):
+        raise AssertionError(f"the ground pass's launches by contract {contracts} do not make up "
+                             f"the phase's {launches['ground_pass']}")
+    return launches, contracts, b1_ms
 
 
 def _first(states, n: int):

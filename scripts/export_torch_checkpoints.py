@@ -5,6 +5,8 @@
     JAX_PLATFORMS=cpu python scripts/export_torch_checkpoints.py --agent pixel_agent
     JAX_PLATFORMS=cpu python scripts/export_torch_checkpoints.py --reference_eval 6000 \
         [--agent latent_agent | rgb_latent | traffic_agent | pixel_turnkey | pixel_agent]
+    JAX_PLATFORMS=cpu python scripts/export_torch_checkpoints.py --reference_video 1500 \
+        [--agent latent_agent | route_latent | rgb_latent | pixel_turnkey]
 
 Needs the JAX package and orbax (it reads the orbax checkpoints); the port
 reads what it writes without either. For each agent the newest step
@@ -28,6 +30,14 @@ RGB latent agent with the rgb->de-prop VAE, the traffic agent under its
 the CPU, and writes the metrics with the command that made them to
 `<out>/<agent>/reference_eval_<STEPS>.json`; chip_smoke.py holds the
 port's drive of the converted agent against it.
+
+`--reference_video STEPS` runs the JAX Trainer's record_eval_video of one
+shipped agent instead: one greedy episode through its interactive env
+(CarlaRouteEnv for route_latent, else CarlaLapEnv), capped at STEPS steps,
+its frames written to a scratch video, headless. It writes the episode's
+reward, distance, laps, step count, termination reason and, on the route
+env, the route its reset drew, to `<out>/<agent>/reference_video_<STEPS>.json`
+(chip_smoke.py `[video]` holds the port's episode against it).
 """
 
 from __future__ import annotations
@@ -84,6 +94,7 @@ REFERENCES = {
     "traffic_agent": ("models/traffic_agent_pretrained", 16, None, TRAFFIC_SETTINGS,
                       {"obs_fn": "vector_npc"}),
     **{name: (src, 8, None, {"obs": "pixels"}, {}) for name, src in PIXEL_AGENTS.items()},
+    "route_latent": ("models/route_latent_pretrained", 8, DEPROP_VAE, {}, {"env_kind": "route"}),
 }
 
 
@@ -189,24 +200,29 @@ def export(out: str) -> None:
         print(f"vae/models/{name} step {step} -> {out}/vae_models/{name}", flush=True)
 
 
-def reference_eval(out: str, agent: str, steps: int, command: str) -> dict:
-    """The JAX package's greedy eval of one shipped agent, the way its
-    cli.run_eval runs it (a Trainer on a scratch copy of the newest
-    checkpoint, so the shipped directory is not written to)."""
+def _reference_trainer(tmp: str, agent: str, steps: int):
+    """A JAX Trainer of one shipped agent on a scratch copy of its newest
+    checkpoint (the shipped directory is not written to)."""
     from carla_ppo_tpu.training.loop import Trainer, TrainerSettings
 
     src_dir, envs, vae, settings_kw, config_kw = REFERENCES[agent]
     src = os.path.join(REPO, src_dir, "checkpoints")
     step = Checkpointer(src).latest_step()
     vae_path = None if vae is None else os.path.join(REPO, "vae/models", vae)
+    shutil.copytree(os.path.join(src, str(step)), os.path.join(tmp, agent, "checkpoints", str(step)))
+    settings = TrainerSettings(
+        model_name=agent, models_root=tmp, eval_envs=envs, eval_max_steps=steps,
+        vae_model=vae_path, **settings_kw,
+    )
+    return Trainer(settings, ppo.PPOConfig(num_envs=envs, **config_kw)), step
+
+
+def reference_eval(out: str, agent: str, steps: int, command: str) -> dict:
+    """The JAX package's greedy eval of one shipped agent, the way its
+    cli.run_eval runs it."""
+    src_dir, envs, vae, settings_kw, config_kw = REFERENCES[agent]
     with tempfile.TemporaryDirectory() as tmp:
-        shutil.copytree(os.path.join(src, str(step)),
-                        os.path.join(tmp, agent, "checkpoints", str(step)))
-        settings = TrainerSettings(
-            model_name=agent, models_root=tmp, eval_envs=envs, eval_max_steps=steps,
-            vae_model=vae_path, **settings_kw,
-        )
-        trainer = Trainer(settings, ppo.PPOConfig(num_envs=envs, **config_kw))
+        trainer, step = _reference_trainer(tmp, agent, steps)
         t0 = time.perf_counter()
         metrics = trainer.evaluate()
         seconds = time.perf_counter() - t0
@@ -227,18 +243,75 @@ def reference_eval(out: str, agent: str, steps: int, command: str) -> dict:
     return result
 
 
+def reference_video(out: str, agent: str, steps: int, command: str) -> dict:
+    """The JAX Trainer's record_eval_video of one shipped agent (headless
+    pygame, the video to a scratch file): the episode's outcome."""
+    os.environ.setdefault("SDL_VIDEODRIVER", "dummy")
+    from carla_ppo_tpu.envs.gym_api import CarlaLapEnv
+
+    src_dir, _, vae, settings_kw, config_kw = REFERENCES[agent]
+    drawn = {}
+    real_reset = CarlaLapEnv.reset
+
+    def reset(self, *args, **kwargs):
+        obs = real_reset(self, *args, **kwargs)
+        drawn["route_id"] = int(self.state.route_id)
+        return obs
+
+    CarlaLapEnv.reset = reset
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer, step = _reference_trainer(tmp, agent, steps)
+            t0 = time.perf_counter()
+            reward = trainer.record_eval_video(os.path.join(tmp, "episode.avi"), max_steps=steps)
+            seconds = time.perf_counter() - t0
+            env = trainer._video_env
+            s = env.state
+            episode = {
+                "env": type(env).__name__, "route_id": drawn["route_id"], "reward": float(reward),
+                "distance_traveled": float(s.distance_traveled),
+                "laps_completed": float(s.laps_completed), "step_count": int(s.step_count),
+                "termination_reason": int(s.termination_reason),
+                "num_routes_completed": int(s.num_routes_completed),
+            }
+            trainer.close()
+    finally:
+        CarlaLapEnv.reset = real_reset
+    result = {
+        "command": command, "agent": src_dir, "step": int(step),
+        "vae_model": None if vae is None else f"vae/models/{vae}",
+        "settings": settings_kw, "config": config_kw, "max_steps": steps,
+        "device": jax.devices()[0].platform, "seconds": seconds, "episode": episode,
+    }
+    os.makedirs(os.path.join(out, agent), exist_ok=True)
+    path = os.path.join(out, agent, f"reference_video_{steps}.json")
+    with open(path, "w") as f:
+        json.dump(result, f, indent=1)
+    print(f"wrote {path}: " + json.dumps(episode), flush=True)
+    return result
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join(REPO, "models", "torch"))
     parser.add_argument("--reference_eval", type=int, default=0,
                         help="steps of the JAX greedy-eval reference (0: convert instead)")
+    parser.add_argument("--reference_video", type=int, default=0,
+                        help="steps of the JAX record_eval_video reference (0: none)")
     parser.add_argument("--agent", default=None, choices=sorted(REFERENCES),
-                        help="the agent of --reference_eval (default latent_agent); without "
-                             "it, a pixel agent to convert alone")
+                        help="the agent of --reference_eval / --reference_video (default "
+                             "latent_agent); without either, a pixel agent to convert alone")
     args = parser.parse_args(argv)
     if jax.default_backend() != "cpu":
         raise SystemExit("run on the CPU backend (JAX_PLATFORMS=cpu)")
-    if args.reference_eval > 0:
+    if args.reference_video > 0:
+        agent = args.agent or "latent_agent"
+        command = ("JAX_PLATFORMS=cpu python scripts/export_torch_checkpoints.py "
+                   f"--reference_video {args.reference_video}")
+        if agent != "latent_agent":
+            command += f" --agent {agent}"
+        reference_video(args.out, agent, args.reference_video, command)
+    elif args.reference_eval > 0:
         agent = args.agent or "latent_agent"
         command = ("JAX_PLATFORMS=cpu python scripts/export_torch_checkpoints.py "
                    f"--reference_eval {args.reference_eval}")

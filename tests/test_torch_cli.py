@@ -3,9 +3,9 @@
 Flag parity: every flag of carla_ppo_tpu.cli.train, run_eval, train_vae
 and collect_data exists in the port's parser with the same destination,
 default, type (by name, or by what it makes of the same strings) and
-choices (train_vae's --models_dir default differs on purpose). Values the
-port does not run yet raise NotImplementedError naming their ROADMAP item.
-Then tiny drives on the CPU: train -> resume -> run_eval; traffic and RGB
+choices (train_vae's --models_dir default differs on purpose). An env
+batch that does not divide over the data-parallel ranks raises before
+anything is written. Then tiny drives on the CPU: train -> resume -> run_eval; traffic and RGB
 training; pixel training (warm start, de-prop target) -> run_eval --obs
 pixels; collect_data -> train_vae -> load_vae.
 """
@@ -119,13 +119,12 @@ def test_train_defaults_build_the_jax_configs():
 @pytest.mark.parametrize("argv, error, match", [
     (["--num_devices", "2", "--num_envs", "1023"], ValueError, "not divisible"),
     (["--num_devices", "3"], ValueError, "not divisible"),
-    (["--record_eval", "1"], NotImplementedError, "ROADMAP A12"),
-], ids=["argv1-A10", "argv2-A10", "argv3-A12"])  # argv0-A8 (--obs pixels) runs now: below
+], ids=["argv1-A10", "argv2-A10"])  # argv0-A8 (--obs pixels) and argv3-A12 (--record_eval 1) run
+# now: test_pixel_training_and_run_eval_on_cpu, test_torch_video.test_train_record_eval_writes_video
 def test_unported_values_raise(argv, error, match, tmp_path, monkeypatch):
     """Values that cannot run raise before anything is written or spawned:
-    what is not ported yet with NotImplementedError naming its ROADMAP item
-    (A12), and an env batch that does not divide over the data-parallel
-    ranks (A10, ported) with the JAX Trainer's ValueError."""
+    an env batch that does not divide over the data-parallel ranks, with
+    the JAX Trainer's ValueError."""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(error, match=match):
         train.main(["--model_name", "u", "--device", "cpu"] + argv)
@@ -133,9 +132,9 @@ def test_unported_values_raise(argv, error, match, tmp_path, monkeypatch):
 
 
 def test_run_eval_refusals(tmp_path, monkeypatch):
+    """A model without a checkpoint exits before anything is written (videos
+    run now: test_torch_video.test_run_eval_cli_writes_video)."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        run_eval.main(["--model_name", "nothing", "--device", "cpu"])
     with pytest.raises(SystemExit):
         run_eval.main(["--model_name", "nothing", "--device", "cpu", "--no_video"])
     assert not os.path.exists("models")
@@ -248,10 +247,9 @@ def test_collect_data_then_train_vae_on_cpu(tmp_path, monkeypatch):
     """collect_data (defaults, NPCs on, 6 pairs) writes PNG pairs that the
     JAX package's datasets.load_images reads; train_vae --epochs 1 on them
     writes a checkpoint that load_vae restores (and refuses to train into
-    that directory again)."""
+    that directory again). (--manual runs now:
+    test_torch_video.test_collect_data_manual_matches_jax.)"""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        collect_data.main(["--manual", "--device", "cpu"])
     assert collect_data.main(["--output_dir", "data", "--num_images", "6", "--device", "cpu"]) == 6
     rgb = j_datasets.load_images("data/rgb", j_datasets.preprocess_rgb_frame)
     seg = j_datasets.load_images("data/segmentation", j_datasets.preprocess_seg_frame)

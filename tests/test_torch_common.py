@@ -152,7 +152,7 @@ def test_cuda_wrappers_refuse_cpu_tensors(kernel):
 
 def test_entry_points_default_to_cuda():
     """Without a card, the default device raises instead of falling back."""
-    from carla_ppo_tpu_torch.envs import track
+    from carla_ppo_tpu_torch.envs import gym_api, track
     from carla_ppo_tpu_torch.utils.device import resolve_device
 
     if torch.cuda.is_available():
@@ -160,6 +160,8 @@ def test_entry_points_default_to_cuda():
         return
     with pytest.raises(RuntimeError, match="cuda"):
         track.make_lap_track(seed=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        gym_api.CarlaLapEnv()
     assert resolve_device("cpu").type == "cpu"
 
 

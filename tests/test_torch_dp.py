@@ -15,11 +15,13 @@ run. Tolerances, stated before measuring:
   test_update_phase_matches' bounds), the loss metrics within rel 1e-3;
   with normalize_rewards, the pmean'd reward moments within rel 1e-5;
 - parameters, buffers, Adam moments and reward moments bitwise equal on
-  both ranks after every iteration (vector and pixel paths, the Trainer);
+  both ranks after every iteration (vector lap and route paths, the pixel
+  path, the Trainer);
 - the DP evaluate against the single-device evaluate of the same batch:
   discrete outcomes (steps, termination reasons, finished) exactly, float
   accumulators (reward, distance, deviation, speed, the fractional laps
-  and the lap bank's laps per track) within 1e-5.
+  and the lap bank's laps per track) within 1e-5; on the lap, the lap
+  bank, 4 routes and the pixel agent.
 """
 
 from __future__ import annotations
@@ -190,7 +192,18 @@ def _evaluates(ranks, kind):
     return r0["evaluate"][kind]["dp"], r0["evaluate"][kind]["single"], r1["evaluate"][kind]["dp"]
 
 
-@pytest.mark.parametrize("kind", ["lap", "lap_bank", "pixels"])
+def test_dp_route_iteration_stays_in_sync(ranks):
+    """Two route iterations (4 routes, 8 envs): the ranks end each
+    iteration bitwise equal, each on its own routes."""
+    r0, r1, _ = ranks
+    for i, (a, b) in enumerate(zip(r0["route"]["iterations"], r1["route"]["iterations"])):
+        _assert_same(a["state"], b["state"], f"route iteration {i}")
+        assert a["metrics"] == b["metrics"]
+        assert all(np.isfinite(v) for v in a["metrics"].values())
+        assert a["route_id"].shape == (4,)
+
+
+@pytest.mark.parametrize("kind", ["lap", "lap_bank", "route", "pixels"])
 def test_dp_evaluate_matches_single_device(ranks, kind):
     got, want, other = _evaluates(ranks, kind)
     assert set(got) == set(want)

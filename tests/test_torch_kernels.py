@@ -736,3 +736,50 @@ def test_render_rgb_batch_launches_kernels_on_card(cuda_device):
     plain = R.composite_plain(R.prep_candidates(s, p, cam), depth, ground, cam.width,
                               return_depth_sky=True)
     assert torch.equal(rgb, R._shade_rgb(*plain, cam))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("contract", ["dash_80x160", "chase_180x320", "banked_route"])
+def test_single_env_renders_on_card(cuda_device, contract):
+    """A batch of one, as the interactive envs render it: render_semantic
+    (and, on the dashcam, render_rgb's depth-and-sky composite) launch the
+    kernels once each and equal the plain versions, 0 mismatched pixels."""
+    from carla_ppo_tpu_torch.envs import route_env, route_planner
+    from carla_ppo_tpu_torch.envs.types import map_tensors
+    from carla_ppo_tpu_torch.utils.device import make_generator
+
+    if contract == "banked_route":
+        bank = route_planner.make_route_bank(route_planner.make_town(seed=0), n_routes=4,
+                                             device=cuda_device)
+        p = route_env.route_env_params(bank)
+        g = make_generator(0, cuda_device)
+        s = route_env.reset(p, g, batch=1)
+        for _ in range(24):
+            s, _ = route_env.autoreset_step(s, torch.tensor([[0.0, 1.0]], device=cuda_device), p, g,
+                                            obs_fn=None)
+    else:
+        s, p = _card_batch(cuda_device, n=8, steps=24)
+        s = map_tensors(lambda t: t[5:6], s)
+    cam = (R.CameraConfig(height=180, width=320, mount_forward=-5.5, mount_height=2.8,
+                          pitch_deg=-15.0) if contract == "chase_180x320" else R.CameraConfig())
+    win_cols, payload = R.prep_windows(s, p, cam)
+    slab, stripes, sky_px, depth = R._device_layout(cam, str(win_cols.device))
+    hw = cam.height * cam.width
+    ground = R.ground_pass_plain(win_cols, payload, slab, stripes, sky_px, hw, CONSTS)
+    rows = R.prep_candidates(s, p, cam)
+    plain = R.composite_plain(rows, depth, ground, cam.width)
+    RC.reset_launch_counts()
+    got = R.render_semantic(s, p, cam)
+    torch.cuda.synchronize()
+    assert RC.LAUNCHES == {"ground_pass": 1, "ground_pass_pose": 0, "composite": 1,
+                           "composite_depth_sky": 0}
+    assert got.shape == (cam.height, cam.width)
+    assert int((got.view(1, -1) != plain).sum()) == 0
+    if contract == "dash_80x160":
+        RC.reset_launch_counts()
+        rgb = R.render_rgb(s, p, cam)
+        torch.cuda.synchronize()
+        assert RC.LAUNCHES["composite_depth_sky"] == 1 and RC.LAUNCHES["ground_pass"] == 1
+        want = R._shade_rgb(*R.composite_plain(rows, depth, ground, cam.width,
+                                               return_depth_sky=True), cam)
+        assert torch.equal(rgb, want[0])

@@ -16,7 +16,7 @@ import sys
 
 import torch
 
-from carla_ppo_tpu_torch.envs import lap_bank_env, track
+from carla_ppo_tpu_torch.envs import lap_bank_env, route_env, route_planner, track
 from carla_ppo_tpu_torch.envs.types import EnvParams
 from carla_ppo_tpu_torch.models.pixel_policy import PixelActorCritic
 from carla_ppo_tpu_torch.models.policy import ActorCritic
@@ -66,6 +66,32 @@ def sync(dp) -> dict:
             "shared_state": ts.shared_generator.get_state()}
 
 
+def _route_params():
+    """4 random routes of the town of seed 0 (no props)."""
+    bank = route_planner.make_route_bank(route_planner.make_town(seed=0), n_routes=4, device="cpu")
+    return route_env.route_env_params(bank)
+
+
+def route_sync(dp) -> dict:
+    """Two vector-obs route iterations (8 envs, 4 a rank, horizon 4, with
+    reward normalisation as the route config trains): each rank chains and
+    re-spawns its own routes from its own stream."""
+    params = _route_params()
+    config = ppo.PPOConfig(env_kind="route", num_envs=8, horizon=4, num_minibatches=2,
+                           num_epochs=1, normalize_rewards=True)
+    ts = ppo.create_train_state(ActorCritic(18, generator=make_generator(rank_seed(dp), "cpu")),
+                                config, make_generator(4, "cpu"))
+    envs = train_dp.shard_env_batch(ppo.init_env_batch(params, 8, ts.generator, "route"), dp)
+    train_dp.replicate(ts, dp)
+    step = train_dp.make_dp_train_iteration(dp, config, params)
+    out = []
+    for _ in range(2):
+        ts, envs, m = step(ts, envs)
+        out.append({"state": _snapshot(ts), "metrics": {k: float(v) for k, v in m.items()},
+                    "route_id": envs.route_id.clone()})
+    return {"iterations": out}
+
+
 def rank_seed(dp) -> int:
     """A different weight seed on each rank: replicate must make them equal."""
     return 100 + dp.rank
@@ -73,13 +99,13 @@ def rank_seed(dp) -> int:
 
 def evaluate(dp) -> dict:
     """DP greedy evaluate of a policy that turns off the road, against the
-    single-device evaluate of the whole batch (rank 0), on a lap and a lap
-    bank."""
+    single-device evaluate of the whole batch (rank 0), on a lap, a lap
+    bank and 4 routes (the whole batch's chained routes, sliced)."""
     out = {}
     bank = lap_bank_env.lap_bank_params(lap_bank_env.make_lap_bank(n_tracks=4, capacity=2048,
                                                                    device="cpu"))
     lap = EnvParams(track=track.make_lap_track(seed=0, device="cpu"))
-    for kind, params in (("lap", lap), ("lap_bank", bank)):
+    for kind, params in (("lap", lap), ("lap_bank", bank), ("route", _route_params())):
         config = ppo.PPOConfig(env_kind=kind)
         model = ActorCritic(18, generator=make_generator(7, "cpu"))
         with torch.no_grad():
@@ -142,7 +168,8 @@ def main(rank: int, world: int, init_method: str, workdir: str) -> None:
     try:
         cases = torch.load(os.path.join(workdir, "cases.pt"), weights_only=False)
         result = {"update": {name: update_parity(dp, c) for name, c in cases.items()},
-                  "sync": sync(dp), "evaluate": evaluate(dp), "pixels": pixel_sync(dp),
+                  "sync": sync(dp), "route": route_sync(dp), "evaluate": evaluate(dp),
+                  "pixels": pixel_sync(dp),
                   "trainer": trainer(dp, workdir)}
         torch.save(result, os.path.join(workdir, f"rank{rank}.pt"))
     finally:
