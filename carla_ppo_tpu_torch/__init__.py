@@ -19,9 +19,14 @@ Layout mirrors the JAX package:
   training/  PPO rollout / update / greedy evaluate, the Trainer, the VAE
              trainer, pixel PPO, eval videos (eval_host)
   parallel/  data-parallel PPO over torch.distributed (one rank per card)
-  cli/       train, run_eval, collect_data, train_vae
+  cli/       train, run_eval, collect_data, train_vae; the inspectors
+             inspect_vae, inspect_agent (tkinter windows, or --dump) and
+             vae_plots (matplotlib figures)
   utils/     device selection, kernel build, weight conversion,
-             checkpoints, metrics, datasets, PNG, video
+             checkpoints, metrics, datasets, PNG, video, profiling
+
+    python -m carla_ppo_tpu_torch.cli.inspect_agent --model_name torch/latent_agent --dump \\
+        --vae_model models/torch/vae_models/from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data
 
 Entry points default to ``device="cuda"`` and raise if no card is present;
 pass ``device="cpu"`` explicitly to run the plain PyTorch versions.

@@ -175,7 +175,28 @@ Phases, one line each; any failure raises and exits non-zero:
      steps/s and its ms per step in the env step, the dashcam render, the
      spectator render and the predict (CUDA events and host time), then
      each kernel's ms at B=1 on those contracts (CUDA events);
- 20. the kernels line (JSON, one row per TPU kernel, and a row for the
+ 20. [inspect] the inspection CLIs (cli/inspect_vae, inspect_agent,
+     vae_plots) on the converted weights, each held against the same call
+     on the CPU in this process: inspect_vae --dump --dims 10 of the de-prop
+     seg VAE and of the RGB VAE (rgb_bce_..._data), a (10 x 80) x (9 x 160)
+     x 3 sheet, within 1 uint8 level of the CPU's on all but 0.1% of pixels
+     (seg class flips); inspect_agent --dump of torch/latent_agent with the
+     de-prop VAE, its 13 steer, throttle and value numbers within 1e-4;
+     vae_plots' sweep arrays (both VAEs) and the RGB VAE's reconstructions of
+     six RGB frames rendered by the port's camera and written as collect_data
+     lays them out (rgb/<i>.png), within 1e-4; both windows through
+     tests/torch_tk_stub.py (a recording stand-in for tkinter and
+     PIL.ImageTk: the card's machine has no tkinter), driven by a latent
+     slider, Reset and "Set z by image" (inspect_vae, RGB VAE) and by a
+     latent and a speed slider (inspect_agent): every image shown equals
+     decode_image of the z the script set, the action label the policy's
+     numbers. Prints the decode ms per call at [1, 64]
+     (profiling.timeit_device), checks that profiling.device_trace of 6
+     decodes keeps the kernel of each launch it records, in one of 3
+     traces (and prints what a plain torch.profiler session of them
+     keeps), and prints the phase's parts
+     (profiling.PhaseTimer);
+ 21. the kernels line (JSON, one row per TPU kernel, and a row for the
      composite's depth-and-sky mode; the camera rows also carry the
      [dp], [agents] and [video] launch counts, and the rows of the B=1
      contracts their `b1_ms`), then the last line
@@ -188,6 +209,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -265,6 +287,15 @@ AGENT_RENDER_EVERY = 10
 AGENT_SPEED_KMH = 18.0
 LIGHT_SPAWN_BEFORE = 30  # waypoints (m) before each light
 LIGHT_STEPS = 600
+# [inspect]: the inspection CLIs on the converted VAEs and latent agent.
+RGB_VAE = os.path.join(REPO, "models", "torch", "vae_models", "rgb_bce_cnn_zdim64_beta1_kl_tolerance0.0_data")
+INSPECT_DIMS = 10  # inspect_vae --dump --dims: a (10 x 80) x (9 x 160) sheet
+INSPECT_FRAMES = 6  # RGB frames for "Set z by image" and vae_plots' reconstructions
+INSPECT_OFF_SHARE = 1e-3  # sheet pixels more than 1 level off the CPU's (seg class flips)
+INSPECT_TOL = 1e-4  # card against CPU: the agent's numbers, the plot arrays
+DECODE_ITERS = 50
+TRACE_DECODES = 3  # per VAE: a short device_trace block, as a user's is
+TRACE_TRIES = 3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, an FMA counted as two
 
 
@@ -774,8 +805,10 @@ def main() -> int:
     # 19. Greedy episodes of the converted agents through the interactive
     # envs, to video, each env a batch of one.
     video_launches, video_contracts, b1_ms = video_phase(torch, RC, smi, dev)
+    # 20. The inspection CLIs and utils/profiling (no kernel of their own).
+    inspect_phase(torch, smi, dev, _first(driven, INSPECT_FRAMES), params)
 
-    # 20. Results: one row per TPU kernel.
+    # 21. Results: one row per TPU kernel.
     def row(name, source, replaces, launches, key, err):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}",
                 "replaces": f"{PALLAS}:{replaces}", "launches": launches, "max_abs_err": err,
@@ -1784,6 +1817,166 @@ def video_phase(torch, RC, smi, dev):
         raise AssertionError(f"the ground pass's launches by contract {contracts} do not make up "
                              f"the phase's {launches['ground_pass']}")
     return launches, contracts, b1_ms
+
+
+def inspect_phase(torch, smi, dev, states, params):
+    """[inspect]: the inspection CLIs on `dev` against the same calls on the
+    CPU (see the module docstring, phase 20); `states` gives the RGB frames.
+    Any failure raises."""
+    import numpy as np
+
+    from carla_ppo_tpu_torch.cli import inspect_agent, inspect_vae, vae_plots
+    from carla_ppo_tpu_torch.models import vae_common
+    from carla_ppo_tpu_torch.ops import rasterizer as R
+    from carla_ppo_tpu_torch.utils import profiling
+    from carla_ppo_tpu_torch.utils.datasets import load_images, preprocess_rgb_frame
+    from carla_ppo_tpu_torch.utils.png import read_png, write_png
+    from tests import torch_tk_stub
+
+    timer = profiling.PhaseTimer()
+    card = ["--device", str(dev)]
+    # models/torch/latent_agent by its absolute path (the CLI joins "models"
+    # and --model_name, so any cwd will do).
+    agent_argv = ["--model_name", LATENT_AGENT, "--vae_model", DEPROP_VAE]
+    with tempfile.TemporaryDirectory() as tmp:
+        with timer.phase("frames"):
+            rgb_dir = os.path.join(tmp, "data", "rgb")
+            os.makedirs(rgb_dir)
+            frames = R.render_rgb_batch(states, params).cpu().numpy()
+            for i, frame in enumerate(frames):  # as collect_data.save_pair writes them
+                write_png(os.path.join(rgb_dir, f"{i}.png"),
+                          (np.clip(frame, 0, 1) * 255).astype(np.uint8))
+
+        vaes, sheets = {}, {}
+        for tag, model_dir in (("seg", DEPROP_VAE), ("rgb", RGB_VAE)):
+            with timer.phase("vae sweep (card)"):
+                card_png = os.path.join(tmp, f"{tag}_card.png")
+                inspect_vae.main(["--model_dir", model_dir, "--dump", card_png,
+                                  "--dims", str(INSPECT_DIMS), *card])
+            with timer.phase("vae sweep (cpu)"):
+                cpu_vae = vae_common.load_vae(model_dir, device="cpu")
+                cpu_png = os.path.join(tmp, f"{tag}_cpu.png")
+                inspect_vae.dump_sweep(cpu_vae, cpu_png, dims=INSPECT_DIMS)
+            vaes[tag] = (vae_common.load_vae(model_dir, device=dev), cpu_vae)
+            got, want = read_png(card_png), read_png(cpu_png)
+            if got.shape != (INSPECT_DIMS * 80, 9 * 160, 3) or got.shape != want.shape:
+                raise AssertionError(f"the {tag} sweep sheet is {got.shape}, the CPU's {want.shape}")
+            diff = np.abs(got.astype(np.int32) - want.astype(np.int32)).max(-1)
+            sheets[tag] = (float((diff > 0).mean()), float((diff > 1).mean()), int(diff.max()))
+            if sheets[tag][1] > (INSPECT_OFF_SHARE if tag == "seg" else 0.0):
+                raise AssertionError(f"the {tag} sweep sheet is off the CPU's: {sheets[tag]}")
+
+        with timer.phase("agent sweep"):
+            rows = np.array(inspect_agent.main([*agent_argv, "--dump", *card]))
+            with contextlib.redirect_stdout(io.StringIO()):  # the same lines again
+                cpu_rows = np.array(inspect_agent.main([*agent_argv, "--dump", "--device", "cpu"]))
+        agent_err = float(np.abs(rows - cpu_rows).max())
+        if rows.shape != (13, 4) or not agent_err <= INSPECT_TOL:
+            raise AssertionError(f"the agent sweep is off the CPU's by {agent_err}: {rows} vs {cpu_rows}")
+
+        plot_err = {}
+        with timer.phase("plot arrays"):
+            for tag, (model, cpu_model) in vaes.items():
+                _, images = vae_plots.latent_sweep(model, 8, 9, 3.0)
+                _, cpu_images = vae_plots.latent_sweep(cpu_model, 8, 9, 3.0)
+                plot_err[f"{tag} sweep"] = float(np.abs(images - cpu_images).max())
+            src, recon = vae_plots.reconstructions(vaes["rgb"][0], os.path.dirname(rgb_dir))
+            cpu_src, cpu_recon = vae_plots.reconstructions(vaes["rgb"][1], os.path.dirname(rgb_dir))
+            plot_err["rgb reconstructions"] = float(np.abs(recon - cpu_recon).max())
+        if (recon.shape != (INSPECT_FRAMES, 80, 160, 3) or not np.array_equal(src, cpu_src)
+                or not max(plot_err.values()) <= INSPECT_TOL):
+            raise AssertionError(f"vae_plots' arrays are off the CPU's: {plot_err}, {recon.shape}")
+
+        with timer.phase("vae window"), torch_tk_stub.installed() as tk:
+            rgb_vae = vaes["rgb"][0]
+            inspect_vae.run_ui(rgb_vae, rgb_dir)
+            tk.scale("z3").command("1.5")
+            tk.button("Reset").command()
+            np.random.seed(7)
+            tk.button("Set z by image").command()
+            shown = list(tk.images)
+        one = np.zeros(64, np.float32)
+        one[3] = 1.5
+        loaded = load_images(rgb_dir, preprocess_rgb_frame, limit=50)
+        np.random.seed(7)
+        with torch.no_grad():
+            seeded = rgb_vae.encode(torch.as_tensor(loaded[np.random.randint(len(loaded))][None],
+                                                    device=dev))[0].cpu().numpy()
+        zero = np.zeros(64, np.float32)
+        want_z = [zero, one, zero, seeded]
+        ui_ok = len(shown) == 4 and all(
+            np.array_equal(img[::3, ::3], inspect_vae.decode_image(rgb_vae, z))
+            for img, z in zip(shown, want_z))
+
+        with timer.phase("agent window"), torch_tk_stub.installed() as tk:
+            inspect_agent.main([*agent_argv, *card])
+            tk.scale("z2").command("1.0")
+            tk.scale("speed").command("12.0")
+            act = inspect_agent.make_act(inspect_agent.load_agent(LATENT_AGENT, 67, device=dev))
+        two = np.zeros(64, np.float32)
+        two[2] = 1.0
+        a, val = act(two, np.float32([0.0, 0.5, 12.0]))
+        label = [w for w in tk.labels() if "font" in w.options][0].options["text"]
+        want_label = f"steer    {float(a[0]):+.3f}\nthrottle {float(a[1]):.3f}\nvalue    {val:.2f}"
+        seg_vae = vaes["seg"][0]
+        agent_ui_ok = len(tk.images) == 3 and label == want_label and all(
+            np.array_equal(img[::3, ::3], inspect_vae.decode_image(seg_vae, z))
+            for img, z in zip(tk.images, [np.zeros(64, np.float32), two, two]))
+
+        with timer.phase("decode timing"):
+            z1 = torch.zeros(1, 64, device=dev)
+            decode_ms = {}
+            with torch.no_grad():
+                for tag, (model, _) in vaes.items():
+                    decode_ms[tag] = 1e3 * profiling.timeit_device(model.generate_from_latent, z1,
+                                                                   iters=DECODE_ITERS)
+                # A short block late in a long process: device_trace must keep
+                # the kernel of each launch; a plain session of the same block
+                # can lose them all. device_trace itself lost a block's kernels
+                # in 1 of 60 traces (scripts/profiler_drop_probe.py, PERF.md
+                # section 6), so it gets TRACE_TRIES traces to keep them all.
+                def block():
+                    for model, _ in vaes.values():
+                        for _ in range(TRACE_DECODES):
+                            model.generate_from_latent(z1)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+
+                def kept(session, name):
+                    """(launches whose kernel the trace holds, launches)."""
+                    trace_dir = os.path.join(tmp, name)
+                    with session(trace_dir):
+                        block()
+                    with open(os.path.join(trace_dir, os.listdir(trace_dir)[0])) as f:
+                        events = json.load(f)["traceEvents"]
+                    launched = {e["args"].get("correlation") for e in events
+                                if profiling.is_kernel_launch(e)}
+                    ran = {e["args"].get("correlation") for e in events if e.get("cat") == "kernel"}
+                    return len(launched & ran), len(launched)
+
+                helper = []
+                while len(helper) < TRACE_TRIES and (not helper or helper[-1][0] < helper[-1][1]):
+                    helper.append(kept(lambda d: profiling.device_trace(d, device=dev),
+                                       f"device_trace{len(helper)}"))
+                plain = kept(lambda d: torch.profiler.profile(
+                    on_trace_ready=torch.profiler.tensorboard_trace_handler(d)), "plain")
+
+    log(f"[inspect] {smi}: sweep sheets against the CPU's (share of pixels off, share more than 1 "
+        f"level off, max levels) {sheets}; agent sweep max |card - cpu| {agent_err:.3g} "
+        f"(steer {', '.join(f'{r[1]:+.4f}' for r in rows)}; throttle "
+        f"{', '.join(f'{r[2]:.4f}' for r in rows)}; value {', '.join(f'{r[3]:.3f}' for r in rows)}); "
+        f"plot arrays max |card - cpu| {plot_err}; windows: vae {len(shown)} images, agent "
+        f"{len(tk.images)} images, label {label!r}; decode ms per call at [1, 64] "
+        f"(timeit_device, {DECODE_ITERS} calls) {', '.join(f'{k} {v:.4f}' for k, v in decode_ms.items())}; "
+        f"{len(vaes) * TRACE_DECODES} decodes traced, launches whose kernel the trace holds: device_trace "
+        f"{', then '.join(f'{k} of {n}' for k, n in helper)}, a plain torch.profiler session "
+        f"{plain[0]} of {plain[1]}; parts: "
+        + "; ".join(timer.summary().splitlines()))
+    if not ui_ok or not agent_ui_ok:
+        raise AssertionError(f"a window's images or label differ from decode_image / the policy "
+                             f"(vae window {ui_ok}, agent window {agent_ui_ok}: {label!r} vs {want_label!r})")
+    if dev.type == "cuda" and not 0 < helper[-1][1] == helper[-1][0]:
+        raise AssertionError(f"device_trace kept the kernels of {helper} launches")
 
 
 def _first(states, n: int):

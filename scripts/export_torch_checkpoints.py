@@ -83,7 +83,8 @@ COMMITTED_PIXEL_AGENTS = ("pixel_turnkey",)
 DEPROP_VAE = "from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data"
 RGB_DEPROP_VAE = "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data"  # rgb source
 VAES = (DEPROP_VAE, "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_data", RGB_DEPROP_VAE,
-        "rgb_bce_cnn_zdim64_beta1_kl_tolerance0.0_data")
+        "rgb_bce_cnn_zdim64_beta1_kl_tolerance0.0_data",
+        "from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_data")
 # The traffic agent's NPC and reward-shape flags (README, its quality row).
 TRAFFIC_SETTINGS = dict(num_npcs=4, npc_keep_lat=-0.5, npc_keep_gain=1.0, reward_min_speed=30.0,
                         reward_target_speed=38.0, reward_max_speed=55.0, low_speed_threshold=29.0)

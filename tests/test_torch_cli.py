@@ -1,9 +1,9 @@
 """The port's CLIs (carla_ppo_tpu_torch/cli) against the JAX package's.
 
-Flag parity: every flag of carla_ppo_tpu.cli.train, run_eval, train_vae
-and collect_data exists in the port's parser with the same destination,
-default, type (by name, or by what it makes of the same strings) and
-choices (train_vae's --models_dir default differs on purpose). An env
+Flag parity: every flag of carla_ppo_tpu.cli.train, run_eval, train_vae,
+collect_data, inspect_vae, inspect_agent and vae_plots exists in the port's
+parser with the same destination, default, type (by name, or by what it
+makes of the same strings) and choices (train_vae's --models_dir default differs on purpose). An env
 batch that does not divide over the data-parallel ranks raises before
 anything is written. Then tiny drives on the CPU: train -> resume -> run_eval; traffic and RGB
 training; pixel training (warm start, de-prop target) -> run_eval --obs
@@ -20,11 +20,15 @@ import pytest
 import torch
 
 from carla_ppo_tpu.cli import collect_data as j_collect_data
+from carla_ppo_tpu.cli import inspect_agent as j_inspect_agent
+from carla_ppo_tpu.cli import inspect_vae as j_inspect_vae
 from carla_ppo_tpu.cli import run_eval as j_run_eval
 from carla_ppo_tpu.cli import train as j_train
 from carla_ppo_tpu.cli import train_vae as j_train_vae
+from carla_ppo_tpu.cli import vae_plots as j_vae_plots
 from carla_ppo_tpu.utils import datasets as j_datasets
-from carla_ppo_tpu_torch.cli import collect_data, run_eval, train, train_vae
+from carla_ppo_tpu_torch.cli import (collect_data, inspect_agent, inspect_vae, run_eval, train,
+                                     train_vae, vae_plots)
 from carla_ppo_tpu_torch.models import vae_common
 from carla_ppo_tpu_torch.training import loop
 from carla_ppo_tpu_torch.training import ppo
@@ -35,7 +39,8 @@ DEPROP = str(REPO / "models" / "torch" / "vae_models"
 RGB_DEPROP = str(REPO / "models" / "torch" / "vae_models"
                  / "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data")
 PORT_ONLY = {"train": {"device"}, "run_eval": {"device", "eval_max_steps"},
-             "train_vae": {"device"}, "collect_data": {"device"}}
+             "train_vae": {"device"}, "collect_data": {"device"}, "inspect_vae": {"device"},
+             "inspect_agent": {"device"}, "vae_plots": {"device"}}
 # Defaults the port changes on purpose: its VAEs go beside its converted
 # ones, not among the JAX package's orbax checkpoints in vae/models.
 PORT_DEFAULTS = {("train_vae", "models_dir"): "models/torch/vae_models"}
@@ -83,12 +88,16 @@ def _jax_parser(module, monkeypatch) -> argparse.ArgumentParser:
     return caught[0]
 
 
-@pytest.mark.parametrize("name", ["train", "run_eval", "train_vae", "collect_data"])
+@pytest.mark.parametrize("name", ["train", "run_eval", "train_vae", "collect_data", "inspect_vae",
+                                  "inspect_agent", "vae_plots"])
 def test_flag_parity(name, monkeypatch):
     jax_parser = _jax_parser({"train": j_train, "run_eval": j_run_eval, "train_vae": j_train_vae,
-                              "collect_data": j_collect_data}[name], monkeypatch)
+                              "collect_data": j_collect_data, "inspect_vae": j_inspect_vae,
+                              "inspect_agent": j_inspect_agent, "vae_plots": j_vae_plots}[name],
+                             monkeypatch)
     port_parser = {"train": train, "run_eval": run_eval, "train_vae": train_vae,
-                   "collect_data": collect_data}[name].build_parser()
+                   "collect_data": collect_data, "inspect_vae": inspect_vae,
+                   "inspect_agent": inspect_agent, "vae_plots": vae_plots}[name].build_parser()
     want, got = _actions(jax_parser), _actions(port_parser)
     assert set(got) - set(want) == PORT_ONLY[name]
     for dest, a in want.items():

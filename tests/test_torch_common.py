@@ -61,7 +61,9 @@ _FORBIDDEN = re.compile(
 )
 
 
-@pytest.mark.parametrize("path", ["carla_ppo_tpu_torch", "chip_smoke.py"])
+# tests/torch_tk_stub.py is imported by chip_smoke.py on the card's machine.
+@pytest.mark.parametrize("path", ["carla_ppo_tpu_torch", "chip_smoke.py",
+                                  "tests/torch_tk_stub.py"])
 def test_port_imports_no_jax(path):
     """The port and its chip smoke import neither JAX nor the JAX package."""
     root = REPO / path
@@ -116,7 +118,9 @@ def test_kernel_hash_tracks_header(tmp_path):
 _NETWORKX = re.compile(r"^\s*(import|from)\s+networkx(\s|\.|$)", re.M)
 
 
-@pytest.mark.parametrize("path", ["carla_ppo_tpu_torch", "chip_smoke.py"])
+# tests/torch_tk_stub.py is imported by chip_smoke.py on the card's machine.
+@pytest.mark.parametrize("path", ["carla_ppo_tpu_torch", "chip_smoke.py",
+                                  "tests/torch_tk_stub.py"])
 def test_port_imports_no_networkx(path):
     """The card's machine has no networkx: the port plans routes without it."""
     root = REPO / path
@@ -152,6 +156,7 @@ def test_cuda_wrappers_refuse_cpu_tensors(kernel):
 
 def test_entry_points_default_to_cuda():
     """Without a card, the default device raises instead of falling back."""
+    from carla_ppo_tpu_torch.cli import inspect_vae
     from carla_ppo_tpu_torch.envs import gym_api, track
     from carla_ppo_tpu_torch.utils.device import resolve_device
 
@@ -162,6 +167,10 @@ def test_entry_points_default_to_cuda():
         track.make_lap_track(seed=0)
     with pytest.raises(RuntimeError, match="cuda"):
         gym_api.CarlaLapEnv()
+    with pytest.raises(RuntimeError, match="cuda"):
+        inspect_vae.main(["--model_dir", str(REPO / "models" / "torch" / "vae_models"
+                                             / "rgb_bce_cnn_zdim64_beta1_kl_tolerance0.0_data"),
+                          "--dump", "unwritten.png"])
     assert resolve_device("cpu").type == "cpu"
 
 
