@@ -1,0 +1,5 @@
+"""env_step_ms.train: ms of one lap_env.autoreset_step call (dynamics, rewards, termination, auto-reset) between CUDA events, mean over the window."""
+
+
+def read(run):
+    return run.span_mean_ms("env_step")
