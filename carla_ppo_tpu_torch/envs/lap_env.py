@@ -42,6 +42,7 @@ from carla_ppo_tpu_torch.envs.types import (
     default_env_state,
     map_tensors,
 )
+from carla_ppo_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -391,15 +392,16 @@ def autoreset_step(
 ) -> Tuple[EnvState, StepOutput]:
     """`step`, then re-spawn every env whose episode ended, within the step
     (on a bank: on the same row)."""
-    next_state, out = step(state, action, params, obs_fn=obs_fn)
-    fresh = reset(
-        params, generator, checkpoint_idx=next_state.checkpoint_idx,
-        is_training=state.is_training, route_id=next_state.route_id,
-    )
-    next_state = select_envs(out.done, fresh, next_state)
-    if obs_fn is not None:
-        out.obs = torch.where(out.done[:, None], observe(fresh, params, obs_fn), out.obs)
-    return next_state, out
+    with profiling.span("env_step"):
+        next_state, out = step(state, action, params, obs_fn=obs_fn)
+        fresh = reset(
+            params, generator, checkpoint_idx=next_state.checkpoint_idx,
+            is_training=state.is_training, route_id=next_state.route_id,
+        )
+        next_state = select_envs(out.done, fresh, next_state)
+        if obs_fn is not None:
+            out.obs = torch.where(out.done[:, None], observe(fresh, params, obs_fn), out.obs)
+        return next_state, out
 
 
 def observe(state: EnvState, params: EnvParams, obs_fn: str = "vector") -> Tensor:

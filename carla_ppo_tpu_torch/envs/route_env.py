@@ -35,6 +35,7 @@ from carla_ppo_tpu_torch.envs.types import (
     VehicleState,
     default_env_state,
 )
+from carla_ppo_tpu_torch.utils import profiling
 
 
 def route_env_params(bank: TrackData, max_distance: float = 3000.0, **overrides) -> EnvParams:
@@ -178,12 +179,13 @@ def autoreset_step(
 ) -> Tuple[EnvState, StepOutput]:
     """`step`, then re-spawn every env whose episode ended on a fresh
     random route, within the step (see lap_env.autoreset_step)."""
-    next_state, out = step(state, action, params, generator, obs_fn=obs_fn)
-    fresh = reset(params, generator, is_training=state.is_training)
-    next_state = lap_env.select_envs(out.done, fresh, next_state)
-    if obs_fn is not None:
-        out.obs = torch.where(out.done[:, None], lap_env.observe(fresh, params, obs_fn), out.obs)
-    return next_state, out
+    with profiling.span("env_step"):
+        next_state, out = step(state, action, params, generator, obs_fn=obs_fn)
+        fresh = reset(params, generator, is_training=state.is_training)
+        next_state = lap_env.select_envs(out.done, fresh, next_state)
+        if obs_fn is not None:
+            out.obs = torch.where(out.done[:, None], lap_env.observe(fresh, params, obs_fn), out.obs)
+        return next_state, out
 
 
 observe = lap_env.observe

@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from carla_ppo_tpu_torch.models.policy import ActorCritic
 from carla_ppo_tpu_torch.models.vae import ConvDecoder, ConvEncoder, _dense, encoded_conv_shape
+from carla_ppo_tpu_torch.utils import profiling
 
 
 class PixelActorCritic(nn.Module):
@@ -112,5 +113,5 @@ class PixelActorCritic(nn.Module):
     ) -> Tuple[Tensor, Tensor, Tensor]:
         """(clipped action, its log-prob, value); no decoder work. `noise`
         replaces the generator's [B, A] draw."""
-        z_mean, _ = self.encode(frames)
-        return self.policy.sample(torch.cat([z_mean, measurements], -1), generator, greedy, noise)
+        with profiling.span("policy.sample"):
+            return self.policy.sample_from(self.policy_value(frames, measurements), generator, greedy, noise)

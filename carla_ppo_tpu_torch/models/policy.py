@@ -28,6 +28,7 @@ from torch import Tensor, nn
 from torch.nn import functional as F
 
 from carla_ppo_tpu_torch.models.vae import lecun_normal_
+from carla_ppo_tpu_torch.utils import profiling
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -125,7 +126,18 @@ class ActorCritic(nn.Module):
     ) -> Tuple[Tensor, Tensor, Tensor]:
         """(clipped action, log-prob of the clipped action, value). `noise`
         (standard normal, mean-shaped) replaces the generator's draw."""
-        mean, std, value = self(obs)
+        with profiling.span("policy.sample"):
+            return self.sample_from(self(obs), generator, greedy, noise)
+
+    def sample_from(
+        self,
+        mean_std_value: Tuple[Tensor, Tensor, Tensor],
+        generator: torch.Generator | None = None,
+        greedy: bool = False,
+        noise: Tensor | None = None,
+    ) -> Tuple[Tensor, Tensor, Tensor]:
+        """`sample` from this policy's forward output (mean, std, value)."""
+        mean, std, value = mean_std_value
         if greedy:
             action = mean
         else:

@@ -33,6 +33,8 @@ import torch
 from torch import Tensor, nn
 from torch.nn import functional as F
 
+from carla_ppo_tpu_torch.utils import profiling
+
 # Truncated standard normal on [-2, 2] has this std; flax's variance_scaling
 # divides by it so the truncated draw has the requested variance.
 _TRUNC_STD = 0.87962566103423978
@@ -235,7 +237,8 @@ class VAE(nn.Module):
 
     def encode(self, x: Tensor) -> Tensor:
         """Latent mean, what the RL observation uses."""
-        return self.encode_params(x)[0]
+        with profiling.span("vae.encode"):
+            return self.encode_params(x)[0]
 
     def decode(self, z: Tensor) -> Tensor:
         """Logits [B, prod(target_shape)], flattened in NHWC order."""

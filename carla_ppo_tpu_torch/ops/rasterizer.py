@@ -60,6 +60,7 @@ from torch import Tensor
 from carla_ppo_tpu_torch.envs.observations import env_track
 from carla_ppo_tpu_torch.envs.types import PROP_STRIDE, EnvParams, EnvState, SegClass
 from carla_ppo_tpu_torch.ops import rasterizer_cuda
+from carla_ppo_tpu_torch.utils import profiling
 
 IMAX = 2**31 - 1
 IMIN = -(2**31)
@@ -245,14 +246,15 @@ def prep_windows(states: EnvState, params: EnvParams, cam: CameraConfig) -> Tupl
     the shared track or each env's bank row: (win_cols [B, K0, 8] with x, y
     in columns 0, 1; payload [B, 8, K0] = fx, fy, c_lat, c_along, kidx,
     lw, rw, 0)."""
-    track = params.track
-    K0 = cam.window
-    ar = torch.arange(K0, dtype=torch.int32, device=track.device)
-    idxs = states.waypoint_idx[:, None] - cam.window_behind + ar[None, :]
-    win = env_track(track, states.route_id).gather(window_table(track), idxs)  # [B, K0, 6]
-    cy, sy, cam_x, cam_y = (x[:, None] for x in _camera_pose(states, cam))
-    idx0 = (states.waypoint_idx - cam.window_behind).to(torch.float32)[:, None]
-    return _rotate_windows(win, cy, sy, cam_x, cam_y, idx0)
+    with profiling.span("camera.prep_windows"):
+        track = params.track
+        K0 = cam.window
+        ar = torch.arange(K0, dtype=torch.int32, device=track.device)
+        idxs = states.waypoint_idx[:, None] - cam.window_behind + ar[None, :]
+        win = env_track(track, states.route_id).gather(window_table(track), idxs)  # [B, K0, 6]
+        cy, sy, cam_x, cam_y = (x[:, None] for x in _camera_pose(states, cam))
+        idx0 = (states.waypoint_idx - cam.window_behind).to(torch.float32)[:, None]
+        return _rotate_windows(win, cy, sy, cam_x, cam_y, idx0)
 
 
 def _classify_block(lat, s, dist, lw, rw, consts: tuple[float, ...]) -> Tensor:
@@ -322,13 +324,14 @@ def ground_pass_plain(
 def ground_pass(win_cols: Tensor, payload: Tensor, cam: CameraConfig, style: RoadStyle) -> Tensor:
     """[B, H*W] int32 ground classes: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
-    slab, stripes, sky_px, _ = _device_layout(cam, str(win_cols.device))
-    hw = cam.height * cam.width
-    consts = style_constants(style)
-    if win_cols.device.type == "cuda":
-        return rasterizer_cuda.ground_pass_cuda(win_cols, payload, slab, stripes, sky_px, hw, consts)
-    if win_cols.device.type == "cpu":
-        return ground_pass_plain(win_cols, payload, slab, stripes, sky_px, hw, consts)
+    with profiling.span("camera.ground_pass"):
+        slab, stripes, sky_px, _ = _device_layout(cam, str(win_cols.device))
+        hw = cam.height * cam.width
+        consts = style_constants(style)
+        if win_cols.device.type == "cuda":
+            return rasterizer_cuda.ground_pass_cuda(win_cols, payload, slab, stripes, sky_px, hw, consts)
+        if win_cols.device.type == "cpu":
+            return ground_pass_plain(win_cols, payload, slab, stripes, sky_px, hw, consts)
     raise ValueError(f"no ground pass for device {win_cols.device}")
 
 
@@ -431,17 +434,18 @@ def prep_candidates(states: EnvState, params: EnvParams, cam: CameraConfig) -> T
     """Candidate rows [B, Npad, 8] float32 = (u_c, hw_pix, key bits, valid,
     v_top, v_bot, 0, 0), padded to a multiple of 8 with invalid rows (port
     of _prep_candidates)."""
-    u_c, hw_pix, v_top, v_bot, key, valid = billboard_scalars(states, params, cam)
-    B, N = u_c.shape
-    zeros = torch.zeros_like(u_c)
-    rows = torch.stack(
-        [u_c, hw_pix, key.view(torch.float32), valid.to(torch.float32), v_top, v_bot, zeros, zeros],
-        dim=2,
-    )
-    Npad = -(-N // 8) * 8
-    if Npad != N:
-        rows = torch.cat([rows, rows.new_zeros(B, Npad - N, 8)], 1)
-    return rows.contiguous()
+    with profiling.span("camera.prep_candidates"):
+        u_c, hw_pix, v_top, v_bot, key, valid = billboard_scalars(states, params, cam)
+        B, N = u_c.shape
+        zeros = torch.zeros_like(u_c)
+        rows = torch.stack(
+            [u_c, hw_pix, key.view(torch.float32), valid.to(torch.float32), v_top, v_bot, zeros, zeros],
+            dim=2,
+        )
+        Npad = -(-N // 8) * 8
+        if Npad != N:
+            rows = torch.cat([rows, rows.new_zeros(B, Npad - N, 8)], 1)
+        return rows.contiguous()
 
 
 def composite_plain(
@@ -491,11 +495,12 @@ def composite_plain(
 def composite(rows: Tensor, ground: Tensor, cam: CameraConfig) -> Tensor:
     """Billboards over flat ground frames: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors."""
-    _, _, _, depth_rows = _device_layout(cam, str(rows.device))
-    if rows.device.type == "cuda":
-        return rasterizer_cuda.composite_cuda(rows, depth_rows, ground, cam.width)
-    if rows.device.type == "cpu":
-        return composite_plain(rows, depth_rows, ground, cam.width)
+    with profiling.span("camera.composite"):
+        _, _, _, depth_rows = _device_layout(cam, str(rows.device))
+        if rows.device.type == "cuda":
+            return rasterizer_cuda.composite_cuda(rows, depth_rows, ground, cam.width)
+        if rows.device.type == "cpu":
+            return composite_plain(rows, depth_rows, ground, cam.width)
     raise ValueError(f"no composite for device {rows.device}")
 
 
@@ -503,11 +508,12 @@ def composite_depth_sky(rows: Tensor, ground: Tensor, cam: CameraConfig) -> Tupl
     """(classes, depth, sky), each [B, H*W]: the composite's depth-and-sky
     mode, the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors."""
-    _, _, _, depth_rows = _device_layout(cam, str(rows.device))
-    if rows.device.type == "cuda":
-        return rasterizer_cuda.composite_depth_sky_cuda(rows, depth_rows, ground, cam.width)
-    if rows.device.type == "cpu":
-        return composite_plain(rows, depth_rows, ground, cam.width, return_depth_sky=True)
+    with profiling.span("camera.composite"):
+        _, _, _, depth_rows = _device_layout(cam, str(rows.device))
+        if rows.device.type == "cuda":
+            return rasterizer_cuda.composite_depth_sky_cuda(rows, depth_rows, ground, cam.width)
+        if rows.device.type == "cpu":
+            return composite_plain(rows, depth_rows, ground, cam.width, return_depth_sky=True)
     raise ValueError(f"no composite for device {rows.device}")
 
 

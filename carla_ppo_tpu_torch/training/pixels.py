@@ -43,6 +43,7 @@ from carla_ppo_tpu_torch.ops.running_stats import RunningMoments
 from carla_ppo_tpu_torch.parallel.mesh import DataParallel
 from carla_ppo_tpu_torch.training import ppo
 from carla_ppo_tpu_torch.training.ppo import AdamState, PPOConfig
+from carla_ppo_tpu_torch.utils import profiling
 
 GROUPS = ("policy", "encoder")
 
@@ -141,47 +142,48 @@ def pixel_rollout(
     """`config.horizon` steps of policy + env; returns (env_states,
     trajectory, bootstrap value, episodic metrics). `noise` ([T, B, A]
     standard normal) replaces the generator's action draws."""
-    env = ppo.ENV_KINDS[config.env_kind]
-    T, B = config.horizon, env_states.batch_size
-    dev = env_states.vehicle.pos.device
-    frames = torch.empty((T + 1, B, pix.cam.height, pix.cam.width), dtype=torch.uint8, device=dev)
-    targets = torch.empty_like(frames) if pix.deprop_aux else None
-    meas = torch.empty((T + 1, B, 3), device=dev)
+    with profiling.span("rollout"):
+        env = ppo.ENV_KINDS[config.env_kind]
+        T, B = config.horizon, env_states.batch_size
+        dev = env_states.vehicle.pos.device
+        frames = torch.empty((T + 1, B, pix.cam.height, pix.cam.width), dtype=torch.uint8, device=dev)
+        targets = torch.empty_like(frames) if pix.deprop_aux else None
+        meas = torch.empty((T + 1, B, 3), device=dev)
 
-    def observe(t: int, states: EnvState) -> None:
-        rich, ground, m = render_and_measure(states, env_params, pix.cam)
-        frames[t].copy_(rich)
-        if targets is not None:
-            targets[t].copy_(ground)
-        meas[t] = m
+        def observe(t: int, states: EnvState) -> None:
+            rich, ground, m = render_and_measure(states, env_params, pix.cam)
+            frames[t].copy_(rich)
+            if targets is not None:
+                targets[t].copy_(ground)
+            meas[t] = m
 
-    keys = ("actions", "log_probs", "values", "rewards", "dones")
-    buf: Dict[str, list] = {k: [] for k in keys}
-    ep: Dict[str, list] = {k: [] for k in ("done", "rew", "dist", "laps")}
-    observe(0, env_states)
-    for t in range(T):
-        action, logp, value = model.act(frames_input(frames[t]), meas[t], generator,
-                                        noise=None if noise is None else noise[t])
-        env_states, out = env.autoreset_step(env_states, action, env_params, generator, obs_fn=None)
-        done = out.done.to(torch.float32)
-        for k, v in zip(keys, (action, logp, value, out.reward, done)):
-            buf[k].append(v)
-        for k, v in zip(ep, (done, out.total_reward, out.distance_traveled, out.laps_completed)):
-            ep[k].append(v)
-        observe(t + 1, env_states)
-    bootstrap = model.policy_value(frames_input(frames[T]), meas[T])[2]
-    traj = PixelTrajectory(frames=frames[:T], measurements=meas[:T],
-                           target_frames=None if targets is None else targets[:T],
-                           **{k: torch.stack(v) for k, v in buf.items()})
-    e = {k: torch.stack(v) for k, v in ep.items()}
-    n_done = torch.clamp(e["done"].sum(), min=1.0)
-    episodic = {
-        "train/reward": (e["rew"] * e["done"]).sum() / n_done,
-        "train/distance_traveled": (e["dist"] * e["done"]).sum() / n_done,
-        "train/laps_completed": (e["laps"] * e["done"]).sum() / n_done,
-        "train/episodes_finished": e["done"].sum(),
-    }
-    return env_states, traj, bootstrap, episodic
+        keys = ("actions", "log_probs", "values", "rewards", "dones")
+        buf: Dict[str, list] = {k: [] for k in keys}
+        ep: Dict[str, list] = {k: [] for k in ("done", "rew", "dist", "laps")}
+        observe(0, env_states)
+        for t in range(T):
+            action, logp, value = model.act(frames_input(frames[t]), meas[t], generator,
+                                            noise=None if noise is None else noise[t])
+            env_states, out = env.autoreset_step(env_states, action, env_params, generator, obs_fn=None)
+            done = out.done.to(torch.float32)
+            for k, v in zip(keys, (action, logp, value, out.reward, done)):
+                buf[k].append(v)
+            for k, v in zip(ep, (done, out.total_reward, out.distance_traveled, out.laps_completed)):
+                ep[k].append(v)
+            observe(t + 1, env_states)
+        bootstrap = model.policy_value(frames_input(frames[T]), meas[T])[2]
+        traj = PixelTrajectory(frames=frames[:T], measurements=meas[:T],
+                               target_frames=None if targets is None else targets[:T],
+                               **{k: torch.stack(v) for k, v in buf.items()})
+        e = {k: torch.stack(v) for k, v in ep.items()}
+        n_done = torch.clamp(e["done"].sum(), min=1.0)
+        episodic = {
+            "train/reward": (e["rew"] * e["done"]).sum() / n_done,
+            "train/distance_traveled": (e["dist"] * e["done"]).sum() / n_done,
+            "train/laps_completed": (e["laps"] * e["done"]).sum() / n_done,
+            "train/episodes_finished": e["done"].sum(),
+        }
+        return env_states, traj, bootstrap, episodic
 
 
 def pixel_loss(
@@ -252,85 +254,90 @@ def pixel_update(
     `perms` (one per epoch) and `noises` (one [minibatch, z_dim] draw per
     update, in update order) replace the update generator's draws. Under
     `dp`, `traj` is this rank's slice."""
-    model = train_state.model
-    advantages = gae.compute_gae(traj.rewards, traj.values, bootstrap, traj.dones,
-                                 config.discount_factor, config.gae_lambda)
-    returns = advantages + traj.values
-    adv_snr, stop = ppo.adv_snr_gate(advantages, returns, config, dp)
-    if freeze is not None:
-        stop = stop | freeze
-    if config.normalize_advantage:
-        advantages = ppo.normalize_advantages(advantages, dp)
+    with profiling.span("update"):
+        model = train_state.model
+        with profiling.span("update.gae"):
+            advantages = gae.compute_gae(traj.rewards, traj.values, bootstrap, traj.dones,
+                                         config.discount_factor, config.gae_lambda)
+            returns = advantages + traj.values
+            adv_snr, stop = ppo.adv_snr_gate(advantages, returns, config, dp)
+            if freeze is not None:
+                stop = stop | freeze
+            if config.normalize_advantage:
+                advantages = ppo.normalize_advantages(advantages, dp)
 
-    T, B = traj.rewards.shape
-    fields = {"frames": traj.frames, "measurements": traj.measurements, "actions": traj.actions,
-              "log_probs": traj.log_probs, "returns": returns, "advantages": advantages}
-    if traj.target_frames is not None:
-        fields["target_frames"] = traj.target_frames
-    # env-axis minibatches (contiguous horizons of permuted envs), else a
-    # flat per-sample shuffle, as ppo_update
-    env_axis = config.minibatch_axis == "env" and B % config.num_minibatches == 0
-    if env_axis:
-        data = {k: v.transpose(0, 1) for k, v in fields.items()}
-        perm_size = B
-    else:
-        data = {k: v.reshape((T * B,) + tuple(v.shape[2:])) for k, v in fields.items()}
-        perm_size = T * B
+        T, B = traj.rewards.shape
+        fields = {"frames": traj.frames, "measurements": traj.measurements, "actions": traj.actions,
+                  "log_probs": traj.log_probs, "returns": returns, "advantages": advantages}
+        if traj.target_frames is not None:
+            fields["target_frames"] = traj.target_frames
+        # env-axis minibatches (contiguous horizons of permuted envs), else a
+        # flat per-sample shuffle, as ppo_update
+        env_axis = config.minibatch_axis == "env" and B % config.num_minibatches == 0
+        if env_axis:
+            data = {k: v.transpose(0, 1) for k, v in fields.items()}
+            perm_size = B
+        else:
+            data = {k: v.reshape((T * B,) + tuple(v.shape[2:])) for k, v in fields.items()}
+            perm_size = T * B
 
-    ent_scale = ppo.schedule_value(
-        config.entropy_schedule, config.entropy_scale,
-        torch.tensor(train_state.iteration, device=bootstrap.device),
-    )
-    groups = {g: [p for _, p in named] for g, named in param_groups(model).items()}
-    opt = train_state.opt_state
-    gated = config.kl_target > 0 or config.adv_snr_min > 0 or freeze is not None
-    all_metrics: List[Dict[str, Tensor]] = []
-    update = 0
-    for epoch in range(config.num_epochs):
-        perm = perms[epoch] if perms is not None else torch.randperm(
-            perm_size, generator=train_state.update_generator, device=bootstrap.device)
-        for idx in perm.reshape(config.num_minibatches, -1):
-            if env_axis:
-                batch = {k: v[idx].reshape((-1,) + tuple(v.shape[2:])) for k, v in data.items()}
-            else:
-                batch = {k: v[idx] for k, v in data.items()}
-            noise = noises[update] if noises is not None else train_state.update_generator
-            update += 1
-            for p in model.parameters():
-                p.grad = None
-            loss, metrics = pixel_loss(model, batch, config, pix, noise, ent_scale)
-            loss.backward()
-            del loss, batch
-            flat = [p.grad if p.grad is not None else torch.zeros_like(p) for p in model.parameters()]
-            flat, metrics = ppo.reduce_grads_and_metrics(flat, metrics, dp)
-            grads_of = dict(zip(model.parameters(), flat))
-            new_params, new_opt = {}, {}
-            for g, params in groups.items():
-                grads = [grads_of[p] for p in params]
-                metrics[f"train_grad/{g}_norm"] = ppo.global_norm(grads).detach()
-                new_params[g], new_opt[g] = ppo.clip_and_adam(params, grads, opt[g], config,
-                                                              clip_norm=pix.clip_norm(g))
-            if gated:
-                if config.kl_target > 0:
-                    stop = stop | (metrics["train/approx_kl"] > config.kl_target)
-                keep = ~stop
-                for g, params in groups.items():
-                    new_params[g] = ppo.select_each(keep, new_params[g], params)
-                    new_opt[g] = ppo.select_adam(keep, new_opt[g], opt[g])
-                metrics["train/update_skipped"] = 1.0 - keep.to(torch.float32)
-            with torch.no_grad():
-                for g, params in groups.items():
-                    for p, q in zip(params, new_params[g]):
-                        p.copy_(q)
-            opt = new_opt
-            all_metrics.append(metrics)
-    for p in model.parameters():
-        p.grad = None
-    train_state.opt_state = opt
-    mean_metrics = {k: torch.stack([m[k] for m in all_metrics]).mean() for k in all_metrics[0]}
-    if config.adv_snr_min > 0:
-        mean_metrics["train/adv_snr"] = adv_snr
-    return mean_metrics
+        ent_scale = ppo.schedule_value(
+            config.entropy_schedule, config.entropy_scale,
+            torch.tensor(train_state.iteration, device=bootstrap.device),
+        )
+        groups = {g: [p for _, p in named] for g, named in param_groups(model).items()}
+        opt = train_state.opt_state
+        gated = config.kl_target > 0 or config.adv_snr_min > 0 or freeze is not None
+        all_metrics: List[Dict[str, Tensor]] = []
+        update = 0
+        for epoch in range(config.num_epochs):
+            perm = perms[epoch] if perms is not None else torch.randperm(
+                perm_size, generator=train_state.update_generator, device=bootstrap.device)
+            for idx in perm.reshape(config.num_minibatches, -1):
+                if env_axis:
+                    batch = {k: v[idx].reshape((-1,) + tuple(v.shape[2:])) for k, v in data.items()}
+                else:
+                    batch = {k: v[idx] for k, v in data.items()}
+                noise = noises[update] if noises is not None else train_state.update_generator
+                update += 1
+                for p in model.parameters():
+                    p.grad = None
+                with profiling.span("update.loss"):
+                    loss, metrics = pixel_loss(model, batch, config, pix, noise, ent_scale)
+                with profiling.span("update.backward"):
+                    loss.backward()
+                del loss, batch
+                flat = [p.grad if p.grad is not None else torch.zeros_like(p) for p in model.parameters()]
+                flat, metrics = ppo.reduce_grads_and_metrics(flat, metrics, dp)
+                grads_of = dict(zip(model.parameters(), flat))
+                new_params, new_opt = {}, {}
+                with profiling.span("update.adam"):
+                    for g, params in groups.items():
+                        grads = [grads_of[p] for p in params]
+                        metrics[f"train_grad/{g}_norm"] = ppo.global_norm(grads).detach()
+                        new_params[g], new_opt[g] = ppo.clip_and_adam(params, grads, opt[g], config,
+                                                                      clip_norm=pix.clip_norm(g))
+                    if gated:
+                        if config.kl_target > 0:
+                            stop = stop | (metrics["train/approx_kl"] > config.kl_target)
+                        keep = ~stop
+                        for g, params in groups.items():
+                            new_params[g] = ppo.select_each(keep, new_params[g], params)
+                            new_opt[g] = ppo.select_adam(keep, new_opt[g], opt[g])
+                        metrics["train/update_skipped"] = 1.0 - keep.to(torch.float32)
+                    with torch.no_grad():
+                        for g, params in groups.items():
+                            for p, q in zip(params, new_params[g]):
+                                p.copy_(q)
+                opt = new_opt
+                all_metrics.append(metrics)
+        for p in model.parameters():
+            p.grad = None
+        train_state.opt_state = opt
+        mean_metrics = {k: torch.stack([m[k] for m in all_metrics]).mean() for k in all_metrics[0]}
+        if config.adv_snr_min > 0:
+            mean_metrics["train/adv_snr"] = adv_snr
+        return mean_metrics
 
 
 def pixel_train_iteration(
@@ -341,14 +348,20 @@ def pixel_train_iteration(
     pix: PixelConfig = PixelConfig(),
     freeze: Tensor | None = None,
     dp: DataParallel | None = None,
+    noise: Tensor | None = None,
+    perms: Sequence[Tensor] | None = None,
+    noises: Sequence[Tensor] | None = None,
 ) -> Tuple[PixelTrainState, EnvState, Dict[str, Tensor]]:
     """One pixel-PPO iteration: rollout -> GAE -> epochs of joint updates;
     updates train_state in place and returns (train_state, env_states,
     metrics). Rewards are used as they come (the JAX pixel iteration does
-    not normalise them). Under `dp`, `env_states` is this rank's slice."""
+    not normalise them). Under `dp`, `env_states` is this rank's slice.
+    `noise`, `perms` and `noises` replace the generators' draws, as in
+    pixel_rollout and pixel_update."""
     env_states, traj, bootstrap, episodic = pixel_rollout(
-        train_state.model, env_states, env_params, train_state.generator, config, pix)
-    metrics = pixel_update(train_state, traj, bootstrap, config, pix, freeze=freeze, dp=dp)
+        train_state.model, env_states, env_params, train_state.generator, config, pix, noise=noise)
+    metrics = pixel_update(train_state, traj, bootstrap, config, pix, freeze=freeze, perms=perms,
+                           noises=noises, dp=dp)
     episodic, env_steps = ppo.reduce_episodic(episodic, traj.rewards.numel(), dp)
     ppo.finish_iteration(train_state, metrics, episodic, config, env_steps)
     return train_state, env_states, metrics

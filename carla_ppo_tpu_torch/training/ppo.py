@@ -44,6 +44,7 @@ from carla_ppo_tpu_torch.models.policy import ActorCritic, gaussian_entropy, gau
 from carla_ppo_tpu_torch.ops import gae
 from carla_ppo_tpu_torch.ops.running_stats import RunningMoments, normalize_rewards
 from carla_ppo_tpu_torch.parallel.mesh import DataParallel
+from carla_ppo_tpu_torch.utils import profiling
 from carla_ppo_tpu_torch.utils.device import derived_generator
 
 
@@ -355,57 +356,61 @@ def rollout(
     horizon: int,
     config: PPOConfig,
     latent_obs: LatentObs | None = None,
+    noise: Tensor | None = None,
 ) -> Tuple[EnvState, Trajectory, Tensor, Dict[str, Tensor]]:
     """Run policy + env for `horizon` steps over the batch.
 
     Returns (env_states, trajectory, bootstrap_value, episodic_metrics);
-    episodic metrics average the episodes that finished in the rollout."""
-    env = _env_module(config)
-    obs_builder = make_obs_fn(latent_obs, config)
-    step_obs = None if latent_obs is not None else config.obs_fn
-    obs = obs_builder(env_states, env_params)
-    keys = ("obs", "actions", "log_probs", "values", "rewards", "dones")
-    buf: Dict[str, list] = {k: [] for k in keys}
-    ep: Dict[str, list] = {k: [] for k in ("done", "rew", "dist", "speed", "dev", "laps", "len", "ot")}
-    for _ in range(horizon):
-        action, logp, value = model.sample(obs, generator)
-        env_states, out = env.autoreset_step(
-            env_states, action, env_params, generator, obs_fn=step_obs
-        )
-        next_obs = obs_builder(env_states, env_params) if latent_obs is not None else out.obs
-        done = out.done.to(torch.float32)
-        for k, v in zip(keys, (obs, action, logp, value, out.reward, done)):
-            buf[k].append(v)
-        for k, v in zip(ep, (done, out.total_reward, out.distance_traveled, out.speed_accum,
-                             out.center_lane_deviation, out.laps_completed,
-                             out.step_count.to(torch.float32), out.npc_overtakes)):
-            ep[k].append(v)
-        obs = next_obs
-    traj = Trajectory(**{k: torch.stack(v) for k, v in buf.items()})
-    bootstrap = model(obs)[2]
+    episodic metrics average the episodes that finished in the rollout.
+    `noise` ([horizon, B, A] standard normal) replaces the generator's
+    action draws."""
+    with profiling.span("rollout"):
+        env = _env_module(config)
+        obs_builder = make_obs_fn(latent_obs, config)
+        step_obs = None if latent_obs is not None else config.obs_fn
+        obs = obs_builder(env_states, env_params)
+        keys = ("obs", "actions", "log_probs", "values", "rewards", "dones")
+        buf: Dict[str, list] = {k: [] for k in keys}
+        ep: Dict[str, list] = {k: [] for k in ("done", "rew", "dist", "speed", "dev", "laps", "len", "ot")}
+        for t in range(horizon):
+            action, logp, value = model.sample(obs, generator, noise=None if noise is None else noise[t])
+            env_states, out = env.autoreset_step(
+                env_states, action, env_params, generator, obs_fn=step_obs
+            )
+            next_obs = obs_builder(env_states, env_params) if latent_obs is not None else out.obs
+            done = out.done.to(torch.float32)
+            for k, v in zip(keys, (obs, action, logp, value, out.reward, done)):
+                buf[k].append(v)
+            for k, v in zip(ep, (done, out.total_reward, out.distance_traveled, out.speed_accum,
+                                 out.center_lane_deviation, out.laps_completed,
+                                 out.step_count.to(torch.float32), out.npc_overtakes)):
+                ep[k].append(v)
+            obs = next_obs
+        traj = Trajectory(**{k: torch.stack(v) for k, v in buf.items()})
+        bootstrap = model(obs)[2]
 
-    e = {k: torch.stack(v) for k, v in ep.items()}
-    done_w = e["done"]
-    n_done = torch.clamp(done_w.sum(), min=1.0)
+        e = {k: torch.stack(v) for k, v in ep.items()}
+        done_w = e["done"]
+        n_done = torch.clamp(done_w.sum(), min=1.0)
 
-    def ep_mean(x):
-        return (x * done_w).sum() / n_done
+        def ep_mean(x):
+            return (x * done_w).sum() / n_done
 
-    safe_len = torch.clamp(e["len"], min=1.0)
-    safe_dev = torch.clamp(e["dev"], min=1e-6)
-    episodic = {
-        "train/reward": ep_mean(e["rew"]),
-        "train/distance_traveled": ep_mean(e["dist"]),
-        "train/average_speed": ep_mean(3.6 * e["speed"] / safe_len),
-        "train/center_lane_deviation": ep_mean(e["dev"]),
-        "train/average_center_lane_deviation": ep_mean(e["dev"] / safe_len),
-        "train/distance_over_deviation": ep_mean(e["dist"] / safe_dev),
-        "train/laps_completed": ep_mean(e["laps"]),
-        "train/episode_length": ep_mean(e["len"]),
-        "train/episodes_finished": done_w.sum(),
-        "train/overtakes": ep_mean(e["ot"]),
-    }
-    return env_states, traj, bootstrap, episodic
+        safe_len = torch.clamp(e["len"], min=1.0)
+        safe_dev = torch.clamp(e["dev"], min=1e-6)
+        episodic = {
+            "train/reward": ep_mean(e["rew"]),
+            "train/distance_traveled": ep_mean(e["dist"]),
+            "train/average_speed": ep_mean(3.6 * e["speed"] / safe_len),
+            "train/center_lane_deviation": ep_mean(e["dev"]),
+            "train/average_center_lane_deviation": ep_mean(e["dev"] / safe_len),
+            "train/distance_over_deviation": ep_mean(e["dist"] / safe_dev),
+            "train/laps_completed": ep_mean(e["laps"]),
+            "train/episode_length": ep_mean(e["len"]),
+            "train/episodes_finished": done_w.sum(),
+            "train/overtakes": ep_mean(e["ot"]),
+        }
+        return env_states, traj, bootstrap, episodic
 
 
 def ppo_loss(
@@ -527,15 +532,16 @@ def ppo_update(
     model = train_state.model
     rewards = traj.rewards
     gae_fn = gae.compute_gae_associative if config.use_associative_gae else gae.compute_gae
-    advantages = gae_fn(
-        rewards, traj.values, bootstrap, traj.dones, config.discount_factor, config.gae_lambda
-    )
-    returns = advantages + traj.values
-    adv_snr, stop = adv_snr_gate(advantages, returns, config, dp)
-    if freeze is not None:
-        stop = stop | freeze
-    if config.normalize_advantage:
-        advantages = normalize_advantages(advantages, dp)
+    with profiling.span("update.gae"):
+        advantages = gae_fn(
+            rewards, traj.values, bootstrap, traj.dones, config.discount_factor, config.gae_lambda
+        )
+        returns = advantages + traj.values
+        adv_snr, stop = adv_snr_gate(advantages, returns, config, dp)
+        if freeze is not None:
+            stop = stop | freeze
+        if config.normalize_advantage:
+            advantages = normalize_advantages(advantages, dp)
 
     T, B = traj.rewards.shape
     n = T * B
@@ -574,20 +580,23 @@ def ppo_update(
                 batch = {k: v[idx] for k, v in data.items()}
             for p in params:
                 p.grad = None
-            loss, metrics = ppo_loss(model, batch, config, ent_scale)
-            loss.backward()
+            with profiling.span("update.loss"):
+                loss, metrics = ppo_loss(model, batch, config, ent_scale)
+            with profiling.span("update.backward"):
+                loss.backward()
             grads, metrics = reduce_grads_and_metrics([p.grad for p in params], metrics, dp)
-            new_params, new_opt = clip_and_adam(params, grads, opt, config)
-            if gated:
-                if config.kl_target > 0:
-                    stop = stop | (metrics["train/approx_kl"] > config.kl_target)
-                keep = ~stop
-                new_params = select_each(keep, new_params, params)
-                new_opt = select_adam(keep, new_opt, opt)
-                metrics["train/update_skipped"] = 1.0 - keep.to(torch.float32)
-            with torch.no_grad():
-                for p, q in zip(params, new_params):
-                    p.copy_(q)
+            with profiling.span("update.adam"):
+                new_params, new_opt = clip_and_adam(params, grads, opt, config)
+                if gated:
+                    if config.kl_target > 0:
+                        stop = stop | (metrics["train/approx_kl"] > config.kl_target)
+                    keep = ~stop
+                    new_params = select_each(keep, new_params, params)
+                    new_opt = select_adam(keep, new_opt, opt)
+                    metrics["train/update_skipped"] = 1.0 - keep.to(torch.float32)
+                with torch.no_grad():
+                    for p, q in zip(params, new_params):
+                        p.copy_(q)
             opt = new_opt
             all_metrics.append(metrics)
     for p in params:
@@ -608,11 +617,13 @@ def train_iteration(
     rollout_model: ActorCritic | None = None,
     freeze: Tensor | None = None,
     dp: DataParallel | None = None,
+    perms: Sequence[Tensor] | None = None,
 ) -> Tuple[TrainState, EnvState, Dict[str, Tensor]]:
     """One PPO iteration: rollout(horizon) -> GAE -> epochs of updates (the
     JAX package's train_iteration_core). Updates train_state's model in
     place; returns (train_state, env_states, metrics). Under `dp`,
-    `env_states` is this rank's slice of the batch.
+    `env_states` is this rank's slice of the batch. `perms` (one
+    permutation per epoch) replaces the update generator's draws.
 
     `rollout_model` acts in the rollout in place of train_state.model: the
     "mixed" recipe passes `model.with_compute_dtype(torch.bfloat16)`, a
@@ -625,7 +636,7 @@ def train_iteration(
         config.horizon, config, latent_obs=latent_obs,
     )
     env_states, metrics = update_from_rollout(train_state, env_states, traj, bootstrap, episodic,
-                                              config, freeze=freeze, dp=dp)
+                                              config, freeze=freeze, dp=dp, perms=perms)
     return train_state, env_states, metrics
 
 
@@ -646,21 +657,22 @@ def update_from_rollout(
     them), the update phase, the episodic metrics (averaged over the
     ranks, `train/episodes_finished` summed) and the counters. Returns
     (env_states with the new return carries, metrics)."""
-    if config.normalize_rewards:
-        rewards, reward_norm, ret_carry = normalize_rewards(
-            train_state.reward_norm, env_states.vecnorm_return, traj.rewards, traj.dones,
-            config.discount_factor,
-        )
-        traj = dataclasses.replace(traj, rewards=rewards)
-        env_states = dataclasses.replace(env_states, vecnorm_return=ret_carry)
-        if dp is not None:
-            reward_norm = RunningMoments(*dp.mean([reward_norm.mean, reward_norm.var,
-                                                   reward_norm.count]))
-        train_state.reward_norm = reward_norm
-    metrics = ppo_update(train_state, traj, bootstrap, config, freeze=freeze, perms=perms, dp=dp)
-    episodic, env_steps = reduce_episodic(episodic, traj.rewards.numel(), dp)
-    finish_iteration(train_state, metrics, episodic, config, env_steps)
-    return env_states, metrics
+    with profiling.span("update"):
+        if config.normalize_rewards:
+            rewards, reward_norm, ret_carry = normalize_rewards(
+                train_state.reward_norm, env_states.vecnorm_return, traj.rewards, traj.dones,
+                config.discount_factor,
+            )
+            traj = dataclasses.replace(traj, rewards=rewards)
+            env_states = dataclasses.replace(env_states, vecnorm_return=ret_carry)
+            if dp is not None:
+                reward_norm = RunningMoments(*dp.mean([reward_norm.mean, reward_norm.var,
+                                                       reward_norm.count]))
+            train_state.reward_norm = reward_norm
+        metrics = ppo_update(train_state, traj, bootstrap, config, freeze=freeze, perms=perms, dp=dp)
+        episodic, env_steps = reduce_episodic(episodic, traj.rewards.numel(), dp)
+        finish_iteration(train_state, metrics, episodic, config, env_steps)
+        return env_states, metrics
 
 
 def reduce_episodic(episodic: Dict[str, Tensor], env_steps: int,

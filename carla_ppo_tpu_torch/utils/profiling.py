@@ -1,15 +1,29 @@
 """Profiling / tracing helpers (port of carla_ppo_tpu/utils/profiling.py).
 
 torch.profiler trace capture (viewable in TensorBoard or Perfetto),
-host-clock timing of enqueued device work, phase timers and steps/sec
-counters.
+host-clock timing of enqueued device work, and the program's span
+recorder.
+
+Spans. The program's layers mark their work with `with span(name):` (the
+rollout, the update and its phases, the env step, the camera's prep and
+kernels, the VAE encode, the policy's sample). With no recorder active,
+the default, `span` returns one shared null context: no allocation, no
+clock read. Inside `with recording() as rec:` (or `device_trace`) each
+span is a record in `rec.records` with its parent and its host-clock
+start and end; while a torch.profiler session is on, it is also a
+`record_function` range named `carla_ppo.<name>`, so that the trace shows
+it beside the kernels it launched, and the device's side of each span
+(its launches, its kernels' time, the card's idle time inside it) is read
+from that trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import math
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
@@ -79,17 +93,20 @@ def is_kernel_launch(event: dict) -> bool:
 # and the warm-up's stay out.
 WARM_KERNELS = 4096
 EDGE_S = 0.05
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str, device: str | torch.device = "cuda") -> Iterator[None]:
+def device_trace(log_dir: str, device: str | torch.device = "cuda") -> Iterator["PhaseTimer"]:
     """Capture a torch.profiler trace of the enclosed block into `log_dir`
     (a `*.pt.trace.json` that TensorBoard's profile plugin and Perfetto
     read): CPU and CUDA activity on a card, CPU activity on the CPU. The
     default device raises where there is no card. On a card the block is
     the session's second step, after a warm-up step of WARM_KERNELS
     small kernels that the trace leaves out, with EDGE_S idle on each
-    side. Usage:
+    side. The block runs under `recording()`, so the trace shows the
+    program's layers as `carla_ppo.<name>` ranges; the recorder is yielded.
+    Usage:
         with device_trace("models/m/profile"):
             train_iteration(...)
     """
@@ -112,64 +129,138 @@ def device_trace(log_dir: str, device: str | torch.device = "cuda") -> Iterator[
         prof.step()
         if cuda:
             time.sleep(EDGE_S)
-        yield
+        with recording() as rec:
+            yield rec
         if cuda:  # the block's kernels end inside the trace
             torch.cuda.synchronize(dev)
             time.sleep(EDGE_S)
         prof.step()
 
 
+SPAN_PREFIX = "carla_ppo."
+
+
+@dataclasses.dataclass
+class SpanRecord:
+    """One span: its name, the index of the span it ran inside (-1 at the
+    top) and its host-clock start and end (time.perf_counter seconds;
+    NaN until it ends)."""
+
+    name: str
+    parent: int
+    start_s: float = math.nan
+    end_s: float = math.nan
+
+    @property
+    def host_ms(self) -> float:
+        return (self.end_s - self.start_s) * 1e3
+
+
+@dataclasses.dataclass
+class SpanTotals:
+    """A span name's host-clock sums over its calls; the self time leaves
+    out the spans that ran inside it."""
+
+    calls: int = 0
+    host_s: float = 0.0
+    host_self_s: float = 0.0
+
+    @property
+    def host_ms(self) -> float:
+        return self.host_s * 1e3
+
+    @property
+    def host_self_ms(self) -> float:
+        return self.host_self_s * 1e3
+
+
 class PhaseTimer:
-    """Wall-clock phase accounting with steps/sec rates.
+    """Wall-clock phase accounting, and the program's span recorder.
 
     timer.phase("rollout") context-manages a named phase; `summary()`
     reports each phase's total, calls and ms per call, and units/s where
-    `units_per_call` names the phase.
+    `units_per_call` names the phase. Each phase is a record in `records`
+    (nested phases name their parent) and, while a profiler is on, a
+    `record_function` range `carla_ppo.<name>`, on the device trace's
+    clock beside the kernels it launched. The device's side of a span is
+    read from such a trace.
     """
 
     def __init__(self) -> None:
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
+        self.records: List[SpanRecord] = []
+        self._open: List[int] = []
 
     @contextlib.contextmanager
     def phase(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+        rec = SpanRecord(name, self._open[-1] if self._open else -1)
+        self._open.append(len(self.records))
+        self.records.append(rec)
+        # record_function costs ~16 us a call even with no profiler to see it
+        ranged = torch._C._autograd._profiler_enabled()
+        with torch.profiler.record_function(SPAN_PREFIX + name) if ranged else _NO_SPAN:
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                rec.start_s, rec.end_s = t0, time.perf_counter()
+                self._open.pop()
+
+    def totals_by_name(self) -> Dict[str, SpanTotals]:
+        """Each finished span name's SpanTotals, in order of first call."""
+        child_s = [0.0] * len(self.records)
+        for rec in self.records:
+            if rec.parent >= 0 and not math.isnan(rec.end_s):
+                child_s[rec.parent] += rec.end_s - rec.start_s
+        out: Dict[str, SpanTotals] = {}
+        for i, rec in enumerate(self.records):
+            if math.isnan(rec.end_s):
+                continue
+            t = out.setdefault(rec.name, SpanTotals())
+            t.calls += 1
+            t.host_s += rec.end_s - rec.start_s
+            t.host_self_s += rec.end_s - rec.start_s - child_s[i]
+        return out
+
+    @property
+    def totals(self) -> Dict[str, float]:
+        """Host seconds by phase name."""
+        return {name: t.host_s for name, t in self.totals_by_name().items()}
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        """Finished calls by phase name."""
+        return {name: t.calls for name, t in self.totals_by_name().items()}
 
     def summary(self, units_per_call: Optional[Dict[str, float]] = None) -> str:
         lines = []
-        for name, total in sorted(self.totals.items()):
-            n = self.counts[name]
-            line = f"{name}: {total:.3f}s over {n} calls ({total / n * 1e3:.1f} ms/call)"
+        for name, t in sorted(self.totals_by_name().items()):
+            line = f"{name}: {t.host_s:.3f}s over {t.calls} calls ({t.host_s / t.calls * 1e3:.1f} ms/call)"
             if units_per_call and name in units_per_call:
-                rate = units_per_call[name] * n / total
+                rate = units_per_call[name] * t.calls / t.host_s
                 line += f", {rate:,.0f} units/s"
             lines.append(line)
         return "\n".join(lines)
 
 
-class ThroughputMeter:
-    """EMA of units per second between `tick` calls (the first tick only
-    starts the clock)."""
+# The active recorder; None (the default) turns every span off.
+_recorder: Optional[PhaseTimer] = None
 
-    def __init__(self, alpha: float = 0.1):
-        self.alpha = alpha
-        self.rate: Optional[float] = None
-        self._last: Optional[float] = None
 
-    def tick(self, units: float) -> float:
-        now = time.perf_counter()
-        if self._last is not None:
-            inst = units / max(now - self._last, 1e-9)
-            self.rate = (
-                inst
-                if self.rate is None
-                else (1 - self.alpha) * self.rate + self.alpha * inst
-            )
-        self._last = now
-        return self.rate or 0.0
+def span(name: str):
+    """The context that marks a layer's work as the span `name`: the
+    shared null context unless a recorder is active (`recording`)."""
+    rec = _recorder
+    return _NO_SPAN if rec is None else rec.phase(name)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[PhaseTimer]:
+    """Record every span of the enclosed block into the yielded
+    PhaseTimer. The recorder active before is restored after the block."""
+    global _recorder
+    rec = PhaseTimer()
+    outer, _recorder = _recorder, rec
+    try:
+        yield rec
+    finally:
+        _recorder = outer
