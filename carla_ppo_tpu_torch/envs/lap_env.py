@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
-from carla_ppo_tpu_torch.envs import geometry, rewards
+from carla_ppo_tpu_torch.envs import geometry, rewards, step_graph
 from carla_ppo_tpu_torch.envs.dynamics import vehicle_step
 from carla_ppo_tpu_torch.envs.observations import EnvTrack, encode_state_fns, env_track
 from carla_ppo_tpu_torch.envs.types import (
@@ -391,17 +391,25 @@ def autoreset_step(
     obs_fn: str | None = "vector",
 ) -> Tuple[EnvState, StepOutput]:
     """`step`, then re-spawn every env whose episode ended, within the step
-    (on a bank: on the same row)."""
+    (on a bank: on the same row). On CUDA tensors this replays as one CUDA
+    graph (envs/step_graph.py), with the same results."""
     with profiling.span("env_step"):
-        next_state, out = step(state, action, params, obs_fn=obs_fn)
-        fresh = reset(
-            params, generator, checkpoint_idx=next_state.checkpoint_idx,
-            is_training=state.is_training, route_id=next_state.route_id,
-        )
-        next_state = select_envs(out.done, fresh, next_state)
-        if obs_fn is not None:
-            out.obs = torch.where(out.done[:, None], observe(fresh, params, obs_fn), out.obs)
-        return next_state, out
+        return step_graph.run(_autoreset, state, action, params, generator, obs_fn)
+
+
+def _autoreset(
+    state: EnvState, action: Tensor, params: EnvParams, generator: torch.Generator,
+    obs_fn: str | None,
+) -> Tuple[EnvState, StepOutput]:
+    next_state, out = step(state, action, params, obs_fn=obs_fn)
+    fresh = reset(
+        params, generator, checkpoint_idx=next_state.checkpoint_idx,
+        is_training=state.is_training, route_id=next_state.route_id,
+    )
+    next_state = select_envs(out.done, fresh, next_state)
+    if obs_fn is not None:
+        out.obs = torch.where(out.done[:, None], observe(fresh, params, obs_fn), out.obs)
+    return next_state, out
 
 
 def observe(state: EnvState, params: EnvParams, obs_fn: str = "vector") -> Tensor:
