@@ -99,7 +99,14 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Compute dtype of the policy/value MLP matmuls "
                              "and the frozen VAE encoder (params and the "
                              "distribution math stay float32). The default "
-                             "'mixed' = bfloat16 rollout + float32 update")
+                             "'mixed' = bfloat16 rollout + float32 update; "
+                             "a memory policy (--policy) runs float32")
+    parser.add_argument("--policy", type=str, default="mlp",
+                        help="The policy: 'mlp' (the 500/300 actor-critic) or "
+                             "'granite-4.0-h-micro' (a memory policy: one "
+                             "period of granite-4.0-h-micro, Mamba-2 and "
+                             "attention, carried across env steps; float32, "
+                             "one device, lap env, vector or latent obs)")
 
     parser.add_argument("--lr_schedule", type=schedule_flag, default=(),
                         help="Piecewise-constant lr by iteration, e.g. "
@@ -443,7 +450,10 @@ def build_configs(params: dict):
         vae_scale=params["vae_scale"],
         deprop_aux=params["deprop_aux"],
         warm_start_vae=params["warm_start_vae"],
-        policy_dtype=params["policy_dtype"],
+        # the CLI's default "mixed" means float32 for a memory policy
+        policy_dtype=("float32" if params["policy"] != "mlp" and params["policy_dtype"] == "mixed"
+                      else params["policy_dtype"]),
+        policy=params["policy"],
     )
 
     return config, settings

@@ -22,6 +22,8 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 
+from carla_ppo_tpu_torch.utils import profiling
+
 # A collective that waits longer than this fails instead of hanging.
 DEFAULT_TIMEOUT_S = 600.0
 
@@ -52,14 +54,15 @@ class DataParallel:
         """The mean over the ranks of each tensor (float32), every rank
         getting the same bits: one all-reduce of the flattened values, then
         a division by the world size (the JAX package's pmean)."""
-        flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in tensors])
-        dist.all_reduce(flat)
-        flat = flat / self.world_size
-        out, at = [], 0
-        for t in tensors:
-            out.append(flat[at: at + t.numel()].view(t.shape))
-            at += t.numel()
-        return out
+        with profiling.span("dp.mean"):
+            flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in tensors])
+            dist.all_reduce(flat)
+            flat = flat / self.world_size
+            out, at = [], 0
+            for t in tensors:
+                out.append(flat[at: at + t.numel()].view(t.shape))
+                at += t.numel()
+            return out
 
     def broadcast_(self, tensors: Sequence[Tensor]) -> None:
         """Overwrite each tensor with rank 0's, in place (tensors on the

@@ -48,6 +48,7 @@ from carla_ppo_tpu_torch.envs import track as track_mod
 from carla_ppo_tpu_torch.envs.observations import obs_dim_for
 from carla_ppo_tpu_torch.envs.types import EnvParams
 from carla_ppo_tpu_torch.models import vae_common
+from carla_ppo_tpu_torch.models.hybrid_policy import PRESETS as HYBRID_PRESETS, HybridActorCritic
 from carla_ppo_tpu_torch.models.pixel_policy import PixelActorCritic
 from carla_ppo_tpu_torch.models.policy import ActorCritic
 from carla_ppo_tpu_torch.parallel import train_dp
@@ -100,6 +101,12 @@ class TrainerSettings:
     # "float32", "bfloat16", or "mixed" (a bfloat16 rollout with a float32
     # update). Params and the Gaussian math stay float32 either way.
     policy_dtype: str = "float32"
+    # The policy: "mlp" (ActorCritic) or a memory policy preset of
+    # models/hybrid_policy.PRESETS ("granite-4.0-h-micro"), which runs
+    # float32 on one device on the lap env with vector or latent
+    # observations. Its memory is run state: zero at the start and after a
+    # resume or a rollback.
+    policy: str = "mlp"
     freeze_on_solve: int = 0  # consecutive solved evals that freeze updates
     solve_laps: float = 3.0
     solve_metric: str = "auto"  # "laps", "distance", "auto" (distance on route)
@@ -125,6 +132,14 @@ def check_ported(settings: TrainerSettings, config: ppo.PPOConfig) -> None:
     """Raise for settings the Trainer cannot run."""
     if settings.policy_dtype not in POLICY_DTYPES:
         raise ValueError(f"unknown policy_dtype {settings.policy_dtype!r}")
+    if settings.policy != "mlp":
+        if settings.policy not in HYBRID_PRESETS:
+            raise ValueError(f"unknown policy {settings.policy!r} (mlp or one of {sorted(HYBRID_PRESETS)})")
+        if (settings.policy_dtype != "float32" or settings.obs == "pixels" or config.env_kind != "lap"
+                or settings.num_devices != 1 or settings.record_eval):
+            raise NotImplementedError(
+                f"policy {settings.policy!r} runs float32 on one device on the lap env, with vector or "
+                "latent observations and no eval videos")
 
 
 def reseeded_generator(seed: int, iteration: int, device: torch.device) -> torch.Generator:
@@ -301,8 +316,12 @@ class Trainer:
                 obs_dim = self.latent_obs.obs_dim
             else:
                 obs_dim = obs_dim_for(config.obs_fn)
-            model = ActorCritic(obs_dim, initial_std=config.initial_std, generator=model_gen,
-                                compute_dtype=POLICY_DTYPES[settings.policy_dtype])
+            if settings.policy == "mlp":
+                model = ActorCritic(obs_dim, initial_std=config.initial_std, generator=model_gen,
+                                    compute_dtype=POLICY_DTYPES[settings.policy_dtype])
+            else:  # initialised on the device, from a generator there
+                model = HybridActorCritic(obs_dim, settings.policy, initial_std=config.initial_std,
+                                          generator=make_generator(settings.seed, dev), device=dev)
         create = pixels.create_pixel_train_state if self.pix is not None else ppo.create_train_state
         self.train_state = create(model.to(dev), config, make_generator(settings.seed, dev))
         self.env_states = self._init_envs(self.train_state.generator)
@@ -391,7 +410,10 @@ class Trainer:
 
     def _init_envs(self, generator: torch.Generator):
         """Fresh training envs: the whole batch from `generator` (drawn
-        alike on every rank), then this rank's slice under data parallel."""
+        alike on every rank), then this rank's slice under data parallel;
+        a memory policy's memory of them (`self.memory`) starts at zero."""
+        model = self.train_state.model
+        self.memory = model.initial_memory(self.config.num_envs) if ppo.is_recurrent(model) else None
         envs = ppo.init_env_batch(self.env_params, self.config.num_envs, generator,
                                   env_kind=self.config.env_kind)
         return envs if self.dp is None else train_dp.shard_env_batch(envs, self.dp)
@@ -613,6 +635,7 @@ class Trainer:
                 new_state, new_envs, m = ppo.train_iteration(
                     self.train_state, self.env_states, self.env_params, self.config,
                     latent_obs=self.latent_obs, freeze=freeze, rollout_model=self.rollout_model(),
+                    memory=self.memory,
                 )
             metrics = {k: float(v) for k, v in m.items()}
             if freeze is not None:

@@ -27,6 +27,14 @@ averaged after each rank's own update, the episodic metrics averaged.
 Every rank then applies the same update to the same parameters, and the
 minibatch permutations come from `TrainState.shared_generator`, which all
 ranks draw alike.
+
+Memory policies (models/hybrid_policy.HybridActorCritic, `recurrent`):
+the rollout takes the policy's per-env memory beside `env_states`,
+advances it in place step by step (zeroed where an episode starts: the
+step after a done) and stores the memory from its start (`memory0`) and
+each step's episode-start flags (`firsts`) in the Trajectory. The update
+then runs each env's whole horizon as one sequence from memory0
+(env-axis minibatches only; one device).
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from torch import Tensor
 
 from carla_ppo_tpu_torch.envs import lap_bank_env, lap_env, route_env
 from carla_ppo_tpu_torch.envs.types import EnvParams, EnvState, TerminationReason, map_tensors
+from carla_ppo_tpu_torch.models import hybrid_policy
 from carla_ppo_tpu_torch.models.policy import ActorCritic, gaussian_entropy, gaussian_log_prob
 from carla_ppo_tpu_torch.ops import gae
 from carla_ppo_tpu_torch.ops.running_stats import RunningMoments, normalize_rewards
@@ -331,6 +340,15 @@ class Trajectory:
     values: Tensor  # [T, B]
     rewards: Tensor  # [T, B]
     dones: Tensor  # [T, B] float
+    # A memory policy's: its memory at the rollout's start, and [T, B] bool
+    # flags of the steps that started an episode.
+    memory0: Any = None
+    firsts: Tensor | None = None
+
+
+def is_recurrent(model) -> bool:
+    """Whether `model` is a memory policy (step / sequence forms)."""
+    return getattr(model, "recurrent", False)
 
 
 def create_train_state(model: ActorCritic, config: PPOConfig, generator: torch.Generator) -> TrainState:
@@ -357,13 +375,18 @@ def rollout(
     config: PPOConfig,
     latent_obs: LatentObs | None = None,
     noise: Tensor | None = None,
+    memory: hybrid_policy.Memory | None = None,
 ) -> Tuple[EnvState, Trajectory, Tensor, Dict[str, Tensor]]:
     """Run policy + env for `horizon` steps over the batch.
 
     Returns (env_states, trajectory, bootstrap_value, episodic_metrics);
     episodic metrics average the episodes that finished in the rollout.
     `noise` ([horizon, B, A] standard normal) replaces the generator's
-    action draws."""
+    action draws. A memory policy needs `memory` (its Memory of these
+    envs), which the rollout advances in place; the bootstrap value reads
+    the last observation without advancing it."""
+    if is_recurrent(model) != (memory is not None):
+        raise ValueError("a memory policy rolls out with memory=, and only a memory policy does")
     with profiling.span("rollout"):
         env = _env_module(config)
         obs_builder = make_obs_fn(latent_obs, config)
@@ -372,11 +395,20 @@ def rollout(
         keys = ("obs", "actions", "log_probs", "values", "rewards", "dones")
         buf: Dict[str, list] = {k: [] for k in keys}
         ep: Dict[str, list] = {k: [] for k in ("done", "rew", "dist", "speed", "dev", "laps", "len", "ot")}
+        memory0 = memory.clone() if memory is not None else None
+        firsts: List[Tensor] = []
         for t in range(horizon):
-            action, logp, value = model.sample(obs, generator, noise=None if noise is None else noise[t])
+            step_noise = None if noise is None else noise[t]
+            if memory is not None:
+                firsts.append(memory.first)
+                action, logp, value = model.sample(obs, memory, generator, noise=step_noise)
+            else:
+                action, logp, value = model.sample(obs, generator, noise=step_noise)
             env_states, out = env.autoreset_step(
                 env_states, action, env_params, generator, obs_fn=step_obs
             )
+            if memory is not None:
+                memory.first = out.done
             next_obs = obs_builder(env_states, env_params) if latent_obs is not None else out.obs
             done = out.done.to(torch.float32)
             for k, v in zip(keys, (obs, action, logp, value, out.reward, done)):
@@ -387,7 +419,11 @@ def rollout(
                 ep[k].append(v)
             obs = next_obs
         traj = Trajectory(**{k: torch.stack(v) for k, v in buf.items()})
-        bootstrap = model(obs)[2]
+        if memory is not None:
+            traj.memory0, traj.firsts = memory0, torch.stack(firsts)
+            bootstrap = model.step(obs, memory, memory.first, commit=False)[2]
+        else:
+            bootstrap = model(obs)[2]
 
         e = {k: torch.stack(v) for k, v in ep.items()}
         done_w = e["done"]
@@ -420,10 +456,19 @@ def ppo_loss(
     entropy_scale: Tensor | float | None = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Clipped-surrogate loss on a flat minibatch, with the JAX package's
-    metric set."""
+    metric set. A memory policy's minibatch holds whole env sequences
+    ([B, T, ...], with `firsts`, the stored `memory0` of every env and the
+    rows `envs` of it that they continue): the sequence form runs on them
+    and the loss takes the rows env-major."""
     if entropy_scale is None:
         entropy_scale = config.entropy_scale
-    mean, std, value = model(batch["obs"])
+    if "memory0" in batch:
+        mean, std, value = model.sequence(batch["obs"], batch["memory0"], batch["firsts"], batch.get("envs"))
+        mean, value = mean.reshape(-1, mean.shape[-1]), value.reshape(-1)
+        batch = {k: batch[k].reshape((-1,) + tuple(batch[k].shape[2:]))
+                 for k in ("actions", "log_probs", "returns", "advantages")}
+    else:
+        mean, std, value = model(batch["obs"])
     logp = gaussian_log_prob(batch["actions"], mean, std)
     log_ratio = logp - batch["log_probs"]
     ratio = torch.exp(log_ratio)
@@ -546,12 +591,18 @@ def ppo_update(
     T, B = traj.rewards.shape
     n = T * B
     env_axis = config.minibatch_axis == "env" and B % config.num_minibatches == 0
+    sequences = traj.memory0 is not None
+    if sequences and (not env_axis or dp is not None):
+        raise ValueError("a memory policy updates on whole env sequences on one device: "
+                         "minibatch_axis 'env' with num_envs divisible by num_minibatches, no dp")
     if env_axis:
         data = {
             "obs": traj.obs.transpose(0, 1), "actions": traj.actions.transpose(0, 1),
             "log_probs": traj.log_probs.transpose(0, 1), "returns": returns.transpose(0, 1),
             "advantages": advantages.transpose(0, 1),
         }
+        if sequences:
+            data["firsts"] = traj.firsts.transpose(0, 1)
         perm_size = B
     else:
         data = {
@@ -574,7 +625,10 @@ def ppo_update(
             perm_size, generator=train_state.update_generator, device=rewards.device
         )
         for idx in perm.reshape(config.num_minibatches, -1):
-            if env_axis:
+            if sequences:
+                batch = {k: v[idx] for k, v in data.items()}
+                batch["memory0"], batch["envs"] = traj.memory0, idx
+            elif env_axis:
                 batch = {k: v[idx].reshape((-1,) + tuple(v.shape[2:])) for k, v in data.items()}
             else:
                 batch = {k: v[idx] for k, v in data.items()}
@@ -618,12 +672,14 @@ def train_iteration(
     freeze: Tensor | None = None,
     dp: DataParallel | None = None,
     perms: Sequence[Tensor] | None = None,
+    memory: hybrid_policy.Memory | None = None,
 ) -> Tuple[TrainState, EnvState, Dict[str, Tensor]]:
     """One PPO iteration: rollout(horizon) -> GAE -> epochs of updates (the
     JAX package's train_iteration_core). Updates train_state's model in
     place; returns (train_state, env_states, metrics). Under `dp`,
     `env_states` is this rank's slice of the batch. `perms` (one
-    permutation per epoch) replaces the update generator's draws.
+    permutation per epoch) replaces the update generator's draws. A memory
+    policy's `memory` (of these envs) is advanced in place by the rollout.
 
     `rollout_model` acts in the rollout in place of train_state.model: the
     "mixed" recipe passes `model.with_compute_dtype(torch.bfloat16)`, a
@@ -633,7 +689,7 @@ def train_iteration(
     env_states, traj, bootstrap, episodic = rollout(
         rollout_model if rollout_model is not None else train_state.model,
         env_states, env_params, train_state.generator,
-        config.horizon, config, latent_obs=latent_obs,
+        config.horizon, config, latent_obs=latent_obs, memory=memory,
     )
     env_states, metrics = update_from_rollout(train_state, env_states, traj, bootstrap, episodic,
                                               config, freeze=freeze, dp=dp, perms=perms)
@@ -749,7 +805,8 @@ def greedy_policy(
     model: ActorCritic, env_params: EnvParams, config: PPOConfig, latent_obs: LatentObs | None,
 ) -> Tuple[Callable[[Any], Tensor], Callable[[EnvState, Any], Any], str | None]:
     """(act_mean, observe, step_obs) of `evaluate` for greedy_episodes /
-    greedy_snaps."""
+    greedy_snaps. A memory policy's act_mean carries its memory from the
+    first call (every env starting an episode) to the last."""
     obs_builder = make_obs_fn(latent_obs, config)
 
     def observe(states, out):
@@ -757,7 +814,20 @@ def greedy_policy(
             return obs_builder(states, env_params)
         return out.obs  # the env step's vector observation
 
-    return (lambda obs: model(obs)[0]), observe, (None if latent_obs is not None else config.obs_fn)
+    step_obs = None if latent_obs is not None else config.obs_fn
+    if not is_recurrent(model):
+        return (lambda obs: model(obs)[0]), observe, step_obs
+    carried: Dict[str, hybrid_policy.Memory] = {}
+
+    def act_mean(obs):
+        memory = carried.get("memory")
+        if memory is None:
+            memory = carried["memory"] = model.initial_memory(obs.shape[0], obs.device)
+        mean = model.step(obs, memory, memory.first)[0]
+        memory.first = torch.zeros_like(memory.first)
+        return mean
+
+    return act_mean, observe, step_obs
 
 
 def greedy_episodes(

@@ -29,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "cuda"
 LIB_NAME = "libcarla_ppo_torch_kernels.so"
-SOURCES = ("ground_pass.cu", "ground_pass_pose.cu", "composite.cu")
+SOURCES = ("ground_pass.cu", "ground_pass_pose.cu", "composite.cu", "ssm_step.cu")
 HEADERS = ("ground_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -154,4 +154,7 @@ def load_library() -> ctypes.CDLL:
     lib.launch_composite.restype = _I
     lib.launch_composite_depth_sky.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
     lib.launch_composite_depth_sky.restype = _I
+    lib.launch_ssm_step.argtypes = [_P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                                    _P, _P]
+    lib.launch_ssm_step.restype = _I
     return lib

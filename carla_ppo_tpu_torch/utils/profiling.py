@@ -254,6 +254,19 @@ def span(name: str):
 
 
 @contextlib.contextmanager
+def suspended() -> Iterator[None]:
+    """Turn every span off inside the block (a recomputed forward inside a
+    backward pass, which is not the spans' own work); the recorder comes
+    back after it."""
+    global _recorder
+    outer, _recorder = _recorder, None
+    try:
+        yield
+    finally:
+        _recorder = outer
+
+
+@contextlib.contextmanager
 def recording() -> Iterator[PhaseTimer]:
     """Record every span of the enclosed block into the yielded
     PhaseTimer. The recorder active before is restored after the block."""

@@ -5,7 +5,8 @@
 
 Phases, one line each; any failure raises and exits non-zero:
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build the three CUDA kernels with plain nvcc (seconds taken);
+  2. build the CUDA kernels (one library of four sources) with plain nvcc
+     (seconds taken);
   3. ground-pass kernel vs its plain PyTorch version at B=1024 on fresh
      resets, after 64 driven steps and across the loop's wrap corner:
      mismatched pixels must be 0 (both sides round every op on its own:
@@ -34,6 +35,19 @@ Phases, one line each; any failure raises and exits non-zero:
      sharing a forward ray, four ops per pixel and waypoint, counted from
      the slab);
      each row's bound_share (bound ms / kernel ms) must not exceed 1.05;
+     [ssm] the memory policy's SSM step kernel (ssm_step.cu) vs its plain
+     twin (ops/ssm.py:ssm_step_plain) at the shape the granite-4.0-h-micro
+     preset gives it, B=1024, H 64, P 64, N 128, with x, B and C views of
+     one xBC row and every 7th env starting an episode, with and without
+     commit: y within 1e-5 and the state within 1e-6 of the largest value
+     (float32 rounding of the sum's order; the card test's tolerances),
+     the state untouched without commit; its time, the twin's and its bound
+     (bytes: perfbench/harness/yardstick_seq.ssm_step_bytes); then the
+     preset's policy at its widths on 1024 lap envs with a seeded frozen
+     seg VAE: a 3-step ppo.rollout with memory, the kernel's launch count
+     set to 0 first, which must launch it once per Mamba layer (9) and
+     policy step (4 with the bootstrap value), with finite outputs and the
+     memory advanced;
   7. the lap path: latent-observation lap PPO at PPOConfig defaults
      (1024 envs, horizon 128, 3 epochs x 4 minibatches) with a seeded
      frozen ConvVAE (de-prop seg VAE widths: 1 channel, z 64, 32/64/128/256)
@@ -196,8 +210,8 @@ Phases, one line each; any failure raises and exits non-zero:
      traces (and prints what a plain torch.profiler session of them
      keeps), and prints the phase's parts
      (profiling.PhaseTimer);
- 21. the kernels line (JSON, one row per TPU kernel, and a row for the
-     composite's depth-and-sky mode; the camera rows also carry the
+ 21. the kernels line (JSON, one row per TPU kernel, a row for the
+     composite's depth-and-sky mode and one for the SSM step; the camera rows also carry the
      [dp], [agents] and [video] launch counts, and the rows of the B=1
      contracts their `b1_ms`), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -236,6 +250,8 @@ EVAL_STEPS = 300  # one evaluate chunk: every step runs, also after all envs fin
 STAGE_STEPS = 20
 PROFILE_STEPS = 10
 ENTRY_STEPS = 16  # env steps driven through each camera entry point of phase 9
+SSM_SHAPE = (1024, 64, 64, 128)  # [ssm]: envs, and granite-4.0-h-micro's heads, head size, state size
+SSM_ROLLOUT_STEPS = 3
 PIXEL_CAMERA = dict(height=84, width=84)
 CHASE_CAMERA = dict(height=180, width=320, mount_forward=-5.5, mount_height=2.8, pitch_deg=-15.0)
 PALLAS = "carla_ppo_tpu/ops/rasterizer_pallas.py"
@@ -475,6 +491,85 @@ def drive_train(torch, ppo, RC, log_name, params, config, latent, model, gen, it
     return train_state, envs, ev, launches
 
 
+def ssm_phase(torch, smi, dev, params):
+    """[ssm] (see the module's docstring). Returns (max |kernel - twin|,
+    (kernel ms, twin ms), bound, the kernel's launches over the rollout)."""
+    from carla_ppo_tpu_torch.models.hybrid_policy import HybridActorCritic
+    from carla_ppo_tpu_torch.models.vae import VAE
+    from carla_ppo_tpu_torch.ops import ssm, ssm_cuda
+    from carla_ppo_tpu_torch.training import ppo
+    from carla_ppo_tpu_torch.utils.device import make_generator
+    from perfbench.harness import yardstick_seq
+
+    b, H, P, N = SSM_SHAPE
+    g = make_generator(14, dev)
+    xbc = torch.randn(b, H * P + 2 * N, generator=g, device=dev)
+    x, Bm, Cm = torch.split(xbc, [H * P, N, N], dim=-1)
+    x = x.view(b, H, P)
+    state = torch.randn(b, H, P, N, generator=g, device=dev)
+    dt = torch.rand(b, H, generator=g, device=dev) * 0.1
+    A = -torch.rand(H, generator=g, device=dev) * 15 - 1
+    D = torch.randn(H, generator=g, device=dev)
+    first = torch.arange(b, device=dev) % 7 == 0
+    resets = int(first.sum())
+    err = 0.0
+    for commit in (True, False):
+        want_state, got_state = state.clone(), state.clone()
+        want = ssm.ssm_step_plain(want_state, x, dt, A, Bm, Cm, D, first, commit)
+        got = ssm_cuda.ssm_step_cuda(got_state, x, dt, A, Bm, Cm, D, first, commit)
+        torch.cuda.synchronize()
+        y_err = float((got - want).abs().max())
+        s_err = float((got_state - want_state).abs().max())
+        y_tol = 1e-5 * max(1.0, float(want.abs().max()))
+        s_tol = 1e-6 * max(1.0, float(want_state.abs().max()))
+        untouched = commit or torch.equal(got_state, state)
+        log(f"[ssm parity] commit={commit}: B={b} H={H} P={P} N={N}, {resets} envs reset: max |y - twin| "
+            f"{y_err:.3e} (limit {y_tol:.3e}), max |state - twin| {s_err:.3e} (limit {s_tol:.3e})"
+            + ("" if commit else f", state untouched {untouched}"))
+        if y_err > y_tol or s_err > s_tol or not untouched:
+            raise AssertionError(f"the SSM step kernel disagrees with its twin (commit={commit})")
+        err = max(err, y_err, s_err)
+        del want_state, got_state, want, got
+    k_ms = cuda_ms(torch, lambda: ssm_cuda.ssm_step_cuda(state, x, dt, A, Bm, Cm, D, first), 50)
+    plain_state = state.clone()
+    plain_ms = cuda_ms(torch, lambda: ssm.ssm_step_plain(plain_state, x, dt, A, Bm, Cm, D, first), 3, 1)
+    nbytes = yardstick_seq.ssm_step_bytes(b, H, P, N, resets, True)
+    bnd = bound(nbytes, [(5 * b * H * P * N, FP32_OPS_PER_S)])
+    log(f"[bound] ssm_step: {bnd[2]}")
+    log(f"[timing] {smi}: ssm_step {k_ms:.6f} ms (plain {plain_ms:.3f} ms; bound {bnd[0]:.6f} ms, share "
+        f"{bnd[0] / k_ms:.3f}) at B={b}, H {H}, P {P}, N {N}")
+    del xbc, x, Bm, Cm, state, plain_state
+    torch.cuda.empty_cache()
+
+    vae = VAE(source_shape=(80, 160, 1), z_dim=64, generator=make_generator(1, "cpu")).to(dev).eval()
+    latent = ppo.LatentObs(vae_model=vae)
+    model = HybridActorCritic(latent.obs_dim, "granite-4.0-h-micro", generator=make_generator(15, dev), device=dev)
+    gen = make_generator(16, dev)
+    envs = ppo.init_env_batch(params, b, gen)
+    memory = model.initial_memory(b)
+    torch.cuda.synchronize()
+    ssm_cuda.LAUNCHES["ssm_step"] = 0
+    t0 = time.perf_counter()
+    _, traj, boot, _ = ppo.rollout(model, envs, params, gen, SSM_ROLLOUT_STEPS, ppo.PPOConfig(),
+                                   latent_obs=latent, memory=memory)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ssm_cuda.LAUNCHES["ssm_step"]
+    per_step = model.sizes.n_mamba
+    finite = all(bool(torch.isfinite(t).all()) for t in (traj.actions, traj.log_probs, traj.values, boot, memory.ssm))
+    advanced = not bool(memory.ssm.eq(0).all()) and memory.slot == SSM_ROLLOUT_STEPS
+    log(f"[ssm] {smi}: granite-4.0-h-micro policy, {sum(q.numel() for q in model.parameters())} parameters, "
+        f"{b} envs: a {SSM_ROLLOUT_STEPS}-step rollout in {wall:.3f} s (the first calls included), "
+        f"ssm_step launches {launches} ({per_step} a policy step x {SSM_ROLLOUT_STEPS + 1} steps with the "
+        f"bootstrap), finite {finite}, memory advanced {advanced}, card memory peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if launches != per_step * (SSM_ROLLOUT_STEPS + 1) or per_step != 9 or not finite or not advanced:
+        raise AssertionError("the memory policy's rollout did not step its memory through the SSM kernel")
+    del vae, latent, model, envs, memory, traj, boot
+    torch.cuda.empty_cache()
+    return err, (k_ms, plain_ms), bnd, launches
+
+
 def main() -> int:
     import torch
 
@@ -694,6 +789,9 @@ def main() -> int:
             f"(plain {k_plain_ms:.3f} ms) at B={B}")
     del timing_inputs, contract_inputs, batches, fresh, wrap, routed, odd
 
+    # [ssm] The memory policy's SSM step kernel and its rollout.
+    errs["ssm_step"], times["ssm_step"], bounds["ssm_step"], ssm_launches = ssm_phase(torch, smi, dev, params)
+
     # 7. The lap path.
     _, latent, model, config = _lap_latent_setup(torch, dev)
     vae = latent.vae_model
@@ -836,6 +934,9 @@ def main() -> int:
         # (the Pallas composite it extends is class-only).
         row("composite (depth-and-sky mode)", "composite.cu", 1290,
             rgb_launches["composite_depth_sky"], "composite_depth_sky", errs["composite_depth_sky"]),
+        # The memory policy's SSM step: no TPU kernel (the JAX package has
+        # no recurrent policy); its launches are the [ssm] rollout's.
+        {**row("ssm_step", "ssm_step.cu", None, ssm_launches, "ssm_step", errs["ssm_step"]), "replaces": None},
     ]
     for k in kernels[:2]:
         k["phase_launches"] = {**{f"dp rank {r}": n[k["name"]] for r, n in enumerate(dp_launches)},

@@ -38,7 +38,8 @@ DEPROP = str(REPO / "models" / "torch" / "vae_models"
              / "from_seg_seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data")
 RGB_DEPROP = str(REPO / "models" / "torch" / "vae_models"
                  / "seg_bce_cnn_zdim64_beta1_kl_tolerance0.0_deprop_data")
-PORT_ONLY = {"train": {"device"}, "run_eval": {"device", "eval_max_steps"},
+# The port's own flags: the device everywhere, and train's memory policy.
+PORT_ONLY = {"train": {"device", "policy"}, "run_eval": {"device", "eval_max_steps"},
              "train_vae": {"device"}, "collect_data": {"device"}, "inspect_vae": {"device"},
              "inspect_agent": {"device"}, "vae_plots": {"device"}}
 # Defaults the port changes on purpose: its VAEs go beside its converted
@@ -120,7 +121,8 @@ def test_train_defaults_build_the_jax_configs():
     for f in ppo.PPOConfig.__dataclass_fields__:
         assert getattr(ppo.PPOConfig(), f) == getattr(j_config, f), f
     jax_fields = set(j_train.TrainerSettings.__dataclass_fields__)
-    assert set(loop.TrainerSettings.__dataclass_fields__) == jax_fields
+    assert set(loop.TrainerSettings.__dataclass_fields__) - {"policy"} == jax_fields
+    assert loop.TrainerSettings().policy == args["policy"] == "mlp"  # the port's own setting
     for f in jax_fields:
         assert getattr(loop.TrainerSettings(), f) == getattr(j_train.TrainerSettings(), f), f
 

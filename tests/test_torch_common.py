@@ -75,11 +75,13 @@ def test_port_imports_no_jax(path):
 
 def test_kernel_build_flags():
     """Plain nvcc for sm_90a with -fmad=false (bit-exact against the plain
-    versions), one compile per source plus one link, no torch headers."""
+    versions), one compile per source plus one link, no torch headers; each
+    source names the TPU kernel it replaces, or that it replaces none (the
+    memory policy's SSM step)."""
     from carla_ppo_tpu_torch.utils import cuda_build
 
     compiles, link = cuda_build.compile_commands("nvcc", pathlib.Path("/tmp/x"))
-    assert len(compiles) == len(cuda_build.SOURCES) == 3
+    assert len(compiles) == len(cuda_build.SOURCES) == 4
     for cmd in compiles:
         assert "-fmad=false" in cmd and "arch=compute_90a,code=sm_90a" in cmd
         assert "-c" in cmd and "-Xptxas" in cmd
@@ -87,7 +89,11 @@ def test_kernel_build_flags():
     for src in cuda_build.SOURCES:
         text = (cuda_build.CSRC / src).read_text()
         assert 'extern "C"' in text and "torch/" not in text
-        assert "rasterizer_pallas.py" in text.split("#include")[0]
+        head = text.split("#include")[0]
+        if src == "ssm_step.cu":
+            assert "Replaces: no TPU kernel" in head
+        else:
+            assert "rasterizer_pallas.py" in head
 
 
 def test_kernel_hash_tracks_sources():
