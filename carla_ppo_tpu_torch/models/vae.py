@@ -8,9 +8,10 @@ convs (128 k4, 64 k4, 32 k5, C k4, stride 2, VALID; relu but on the last):
 MLP(512, 256) encoder, MLP(256, 512) decoder. The public functions take
 frames in the JAX package's NHWC layout ([B, H, W, C] floats in [0, 1])
 and give logits flattened in NHWC order, as flax emits them; inside, the
-convolutions run NCHW, the conv encoder flattens NCHW (utils/convert.py
-permutes the JAX heads' rows to match) and the decoder's dense output is
-read in NHWC order, as in flax.
+convolutions run NCHW (on the card, an encode that records no gradient
+runs the NHWC kernels of ops/vae_cuda.py instead), the conv encoder
+flattens NCHW (utils/convert.py permutes the JAX heads' rows to match) and
+the decoder's dense output is read in NHWC order, as in flax.
 
 A VAE built without `target_shape` is the encoder alone (the frozen
 encoder of the latent observation); with it, the whole model that VAE
@@ -33,6 +34,7 @@ import torch
 from torch import Tensor, nn
 from torch.nn import functional as F
 
+from carla_ppo_tpu_torch.ops import vae_cuda
 from carla_ppo_tpu_torch.utils import profiling
 
 # Truncated standard normal on [-2, 2] has this std; flax's variance_scaling
@@ -119,13 +121,24 @@ class ConvEncoder(nn.Module):
         self.convs = nn.ModuleList(convs)
 
     def forward(self, x_nhwc: Tensor, dtype: torch.dtype = torch.float32) -> Tensor:
+        """[B, C_out * h * w], flattened in NCHW order. On the card, a call
+        that records no gradient (float32, 80x160 frames, these widths) runs
+        the hand-written kernels of ops/vae_cuda.py; every other call runs
+        the convolutions below."""
+        if x_nhwc.is_cuda:
+            kernel = vae_cuda.takes_kernel(x_nhwc, self.convs, dtype)
+            vae_cuda.CALLS["kernel" if kernel else "module"] += 1
+            if kernel:
+                x = x_nhwc.contiguous()
+                if x.data_ptr() % 16:  # a view off a 16-byte boundary; fresh memory is aligned
+                    x = x.clone()
+                return vae_cuda.encoder_cuda(x, self.convs)
+        if dtype == torch.float32:
+            return vae_cuda.encoder_plain(x_nhwc, self.convs)
         x = x_nhwc.permute(0, 3, 1, 2)
         for conv in self.convs:
-            if dtype == torch.float32:
-                x = conv(x)
-            else:
-                x = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, stride=2)
-                x = x + conv.bias.to(dtype)[:, None, None]
+            x = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, stride=2)
+            x = x + conv.bias.to(dtype)[:, None, None]
             x = torch.relu(x)
         return x.flatten(1)  # NCHW flatten
 
@@ -236,9 +249,10 @@ class VAE(nn.Module):
         return self.mean_head(h), self.logstd_head(h)
 
     def encode(self, x: Tensor) -> Tensor:
-        """Latent mean, what the RL observation uses."""
+        """Latent mean, what the RL observation uses (the logstd head is
+        not computed)."""
         with profiling.span("vae.encode"):
-            return self.encode_params(x)[0]
+            return self.mean_head(self.encoder(x, self.compute_dtype).to(torch.float32))
 
     def decode(self, z: Tensor) -> Tensor:
         """Logits [B, prod(target_shape)], flattened in NHWC order."""

@@ -29,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "cuda"
 LIB_NAME = "libcarla_ppo_torch_kernels.so"
-SOURCES = ("ground_pass.cu", "ground_pass_pose.cu", "composite.cu", "ssm_step.cu")
+SOURCES = ("ground_pass.cu", "ground_pass_pose.cu", "composite.cu", "ssm_step.cu", "vae_encode.cu")
 HEADERS = ("ground_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -157,4 +157,6 @@ def load_library() -> ctypes.CDLL:
     lib.launch_ssm_step.argtypes = [_P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                                     _P, _P]
     lib.launch_ssm_step.restype = _I
+    lib.launch_vae_encode.argtypes = [_P, _I, _I] + [_P] * 14
+    lib.launch_vae_encode.restype = _I
     return lib

@@ -5,7 +5,7 @@
 
 Phases, one line each; any failure raises and exits non-zero:
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build the CUDA kernels (one library of four sources) with plain nvcc
+  2. build the CUDA kernels (one library of five sources) with plain nvcc
      (seconds taken);
   3. ground-pass kernel vs its plain PyTorch version at B=1024 on fresh
      resets, after 64 driven steps and across the loop's wrap corner:
@@ -48,6 +48,20 @@ Phases, one line each; any failure raises and exits non-zero:
      set to 0 first, which must launch it once per Mamba layer (9) and
      policy step (4 with the bootstrap value), with finite outputs and the
      memory advanced;
+     [vae] the frozen VAE encode's kernels (vae_encode.cu) at B=1024 on the
+     converted de-prop seg VAE (1 channel, frames with ~30% of pixels set)
+     and the converted rgb->de-prop VAE (3 channels, uniform frames):
+     VAE.encode (the kernels and the mean head) within 1e-5 of max |z| of
+     the plain twin (ops/vae_cuda.py:encoder_plain, cuDNN in float32, TF32
+     off) and the head, two calls bit-identical, 3 launches an encode; the
+     seg encode's card ms beside its bound (the encoder's and the mean
+     head's float operations, perfbench/harness/yardstick.py's count, at
+     67 TFLOP/s: 1.707 ms) and the cuDNN path's ms (`library_ms`). The
+     VAE encode's launches are counted with the camera kernels' on every
+     training and evaluation path below (drive_train: exactly 3 for each
+     of a training rollout's horizon + 1 encodes, and no encoder call on
+     cuDNN); the kernels row takes the lap path's count and lists the
+     other paths' in `phase_launches`;
   7. the lap path: latent-observation lap PPO at PPOConfig defaults
      (1024 envs, horizon 128, 3 epochs x 4 minibatches) with a seeded
      frozen ConvVAE (de-prop seg VAE widths: 1 channel, z 64, 32/64/128/256)
@@ -252,6 +266,7 @@ PROFILE_STEPS = 10
 ENTRY_STEPS = 16  # env steps driven through each camera entry point of phase 9
 SSM_SHAPE = (1024, 64, 64, 128)  # [ssm]: envs, and granite-4.0-h-micro's heads, head size, state size
 SSM_ROLLOUT_STEPS = 3
+VAE_BATCH = 1024  # [vae]: frames an encode, the latent rollout's
 PIXEL_CAMERA = dict(height=84, width=84)
 CHASE_CAMERA = dict(height=180, width=320, mount_forward=-5.5, mount_height=2.8, pitch_deg=-15.0)
 PALLAS = "carla_ppo_tpu/ops/rasterizer_pallas.py"
@@ -435,15 +450,35 @@ def depth_sky_check(torch, label, got, want, errs):
         raise AssertionError(f"the depth-and-sky composite disagrees with its plain version on {label}")
 
 
+def reset_launch_counts(RC) -> None:
+    """Set the camera kernels' launch counts, the VAE encode's and its
+    encoder calls by path to 0."""
+    from carla_ppo_tpu_torch.ops import vae_cuda
+
+    RC.reset_launch_counts()
+    vae_cuda.LAUNCHES["vae_encode"] = 0
+    vae_cuda.CALLS.update(kernel=0, module=0)
+
+
+def launch_counts(RC) -> dict:
+    """The camera kernels' launch counts and the VAE encode's (vae_encode)."""
+    from carla_ppo_tpu_torch.ops import vae_cuda
+
+    return {**RC.LAUNCHES, **vae_cuda.LAUNCHES}
+
+
 def drive_train(torch, ppo, RC, log_name, params, config, latent, model, gen, iterations,
                 eval_gen, smi, kernels=("ground_pass", "composite")):
     """Train `iterations` PPO iterations and run a greedy evaluate on one
     path with every launch count set to 0 first; each of `kernels` must
-    have launched. Returns (train state, envs, eval metrics, launch
-    counts)."""
+    have launched, the VAE encode's kernels 3 times for each of the
+    training rollouts' horizon + 1 encodes, and no encode may have left
+    them. Returns (train state, envs, eval metrics, launch counts)."""
+    from carla_ppo_tpu_torch.ops import vae_cuda
+
     train_state = ppo.create_train_state(model, config, gen)
     envs = ppo.init_env_batch(params, config.num_envs, train_state.generator, config.env_kind)
-    RC.reset_launch_counts()
+    reset_launch_counts(RC)
     start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     start.record()
     metrics = []
@@ -452,12 +487,13 @@ def drive_train(torch, ppo, RC, log_name, params, config, latent, model, gen, it
             train_state, envs, m = ppo.train_iteration(train_state, envs, params, config,
                                                        latent_obs=latent)
             metrics.append(m)
+    train_encode_launches = vae_cuda.LAUNCHES["vae_encode"]
     mid.record()
     ev = ppo.evaluate(model, params, eval_gen, num_envs=config.num_envs, max_steps=EVAL_STEPS,
                       config=config, latent_obs=latent, chunk=EVAL_STEPS)
     end.record()
     torch.cuda.synchronize()
-    launches = dict(RC.LAUNCHES)
+    launches = launch_counts(RC)
     train_s = start.elapsed_time(mid) / 1e3
     eval_s = mid.elapsed_time(end) / 1e3
     tag = "" if log_name == "lap" else f" {log_name}"
@@ -475,9 +511,13 @@ def drive_train(torch, ppo, RC, log_name, params, config, latent, model, gen, it
     log(f"[eval{tag}] " + " ".join(f"{k}={v:.6g}" for k, v in ev_vals.items()))
     if not all(math.isfinite(v) for v in ev_vals.values()):
         raise AssertionError(f"non-finite eval metrics on the {log_name} path")
-    log(f"[launches] {log_name} path: {launches}")
+    log(f"[launches] {log_name} path: {launches}; vae_encode in training {train_encode_launches}; "
+        f"encoder calls by path {vae_cuda.CALLS}")
     if any(launches[k] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of the {log_name} path never launched: {launches}")
+    if train_encode_launches != 3 * (config.horizon + 1) * iterations or vae_cuda.CALLS["module"]:
+        raise AssertionError(f"the {log_name} path's encodes did not all run the VAE encode kernels: "
+                             f"{train_encode_launches} launches in training, {vae_cuda.CALLS}")
     steps = iterations * config.horizon * config.num_envs
     log(f"[throughput{tag}] {smi}: train {steps} env-steps in {train_s:.3f} s = "
         f"{steps / train_s:.1f} env-steps/s (rollout + update); greedy eval {EVAL_STEPS} steps "
@@ -568,6 +608,54 @@ def ssm_phase(torch, smi, dev, params):
     del vae, latent, model, envs, memory, traj, boot
     torch.cuda.empty_cache()
     return err, (k_ms, plain_ms), bnd, launches
+
+
+def vae_phase(torch, smi, dev):
+    """[vae] (see the module's docstring). Returns (max |z - twin's z| over
+    both VAEs, (seg encode ms, the twin's ms), bound, launches an encode,
+    the twin's ms)."""
+    from carla_ppo_tpu_torch.models import vae_common
+    from carla_ppo_tpu_torch.ops import vae_cuda
+    from perfbench.harness import yardstick
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    errs = []
+    for label, path, cin in (("seg", DEPROP_VAE, 1), ("rgb", RGB_DEPROP_VAE, 3)):
+        vae = vae_common.load_vae(path, device=dev)
+        x = torch.rand(VAE_BATCH, 80, 160, cin, generator=g, device=dev)
+        if cin == 1:
+            x = (x < 0.3).float()  # ~30% of the pixels set, as a segmentation mask
+        with torch.no_grad():
+            want = vae.mean_head(vae_cuda.encoder_plain(x, vae.encoder.convs))
+            launches = vae_cuda.LAUNCHES["vae_encode"]
+            got = vae.encode(x)
+            torch.cuda.synchronize()
+            launches = vae_cuda.LAUNCHES["vae_encode"] - launches
+            same = torch.equal(got, vae.encode(x))
+        err = float((got - want).abs().max())
+        tol = 1e-5 * float(want.abs().max())
+        errs.append(err)
+        log(f"[vae parity] {label} VAE ({cin} channel{'s' if cin > 1 else ''}), B={VAE_BATCH}: max |z - twin| "
+            f"{err:.3e} (limit {tol:.3e}), repeat bit-identical {same}, launches an encode {launches}")
+        if err > tol or not same or launches != 3:
+            raise AssertionError(f"the VAE encode kernels disagree with their plain twin on the {label} VAE")
+        if cin == 1:
+            seg, seg_x = vae, x
+    with torch.no_grad():
+        k_ms = cuda_ms(torch, lambda: seg.encode(seg_x), 20)
+        lib_ms = cuda_ms(torch, lambda: seg.mean_head(vae_cuda.encoder_plain(seg_x, seg.encoder.convs)), 20)
+    enc, flat = yardstick._encoder_flops(80, 160, 1, vae_cuda.FEATURES)
+    flops = VAE_BATCH * (enc + 2 * flat * seg.z_dim)
+    # bytes: the frames, conv2's and conv3's outputs written and read once, the weights
+    nbytes = 4 * (seg_x.numel() + 2 * VAE_BATCH * (18 * 38 * 64 + 8 * 18 * 128)
+                  + sum(q.numel() for q in seg.encoder.parameters()) + VAE_BATCH * seg.z_dim)
+    bnd = bound(nbytes, [(flops / 2, FP32_OPS_PER_S)])
+    log(f"[bound] vae_encode: {bnd[2]}")
+    log(f"[timing] {smi}: vae_encode {k_ms:.6f} ms (bound {bnd[0]:.6f} ms, share {bnd[0] / k_ms:.3f}; "
+        f"library_ms: the cuDNN path {lib_ms:.6f} ms) at B={VAE_BATCH}, seg VAE")
+    del vae, seg, x, seg_x, want, got
+    torch.cuda.empty_cache()
+    return max(errs), (k_ms, lib_ms), bnd, launches, lib_ms
 
 
 def main() -> int:
@@ -792,6 +880,10 @@ def main() -> int:
     # [ssm] The memory policy's SSM step kernel and its rollout.
     errs["ssm_step"], times["ssm_step"], bounds["ssm_step"], ssm_launches = ssm_phase(torch, smi, dev, params)
 
+    # [vae] The frozen VAE encode's kernels.
+    errs["vae_encode"], times["vae_encode"], bounds["vae_encode"], _, vae_library_ms = \
+        vae_phase(torch, smi, dev)
+
     # 7. The lap path.
     _, latent, model, config = _lap_latent_setup(torch, dev)
     vae = latent.vae_model
@@ -937,6 +1029,12 @@ def main() -> int:
         # The memory policy's SSM step: no TPU kernel (the JAX package has
         # no recurrent policy); its launches are the [ssm] rollout's.
         {**row("ssm_step", "ssm_step.cu", None, ssm_launches, "ssm_step", errs["ssm_step"]), "replaces": None},
+        # The frozen VAE encode: no TPU kernel (XLA ran the convolutions);
+        # its plain version is the twin on the card, cuDNN, as library_ms;
+        # its launches are the lap path's (3 an encode, 129 encodes an
+        # iteration, and the evaluate's).
+        {**row("vae_encode", "vae_encode.cu", None, lap_launches["vae_encode"], "vae_encode",
+               errs["vae_encode"]), "replaces": None, "library_ms": vae_library_ms},
     ]
     for k in kernels[:2]:
         k["phase_launches"] = {**{f"dp rank {r}": n[k["name"]] for r, n in enumerate(dp_launches)},
@@ -948,6 +1046,13 @@ def main() -> int:
     for k, contract in ((2, "v4"), (3, "v3d"), (4, "v3c")):
         kernels[k]["phase_launches"] = {"video": video_contracts[contract]}
     kernels[6]["phase_launches"] = {"video": video_launches["composite_depth_sky"]}
+    kernels[8]["phase_launches"] = {
+        "rgb": rgb_launches["vae_encode"], "route": route_launches["vae_encode"],
+        "lap_bank": bank_launches["vae_encode"], "trainer": trainer_launches["vae_encode"],
+        "pretrained": pretrained_launches["vae_encode"], "rgb_pretrained": rgb_eval_launches["vae_encode"],
+        "vae_pipeline": vae_launches["vae_encode"], "pixels": pixel_launches["vae_encode"],
+        "pixel_pretrained": pixel_eval_launches["vae_encode"],
+        **{f"dp rank {r}": n["vae_encode"] for r, n in enumerate(dp_launches)}}
     # ... and each contract's time at B=1.
     for k, key in ((1, "composite 80x160"), (2, "ground_pass 180x320"),
                    (3, "ground_pass banked 80x160"), (4, "ground_pass 80x160"),
@@ -960,6 +1065,9 @@ def main() -> int:
         f"vae_pipeline path: {vae_launches}; pixels path: {pixel_launches}; pixel_pretrained "
         f"path: {pixel_eval_launches}; video phase: {video_launches}")
     log(json.dumps({"kernels": kernels}))
+    missed = [path for path, n in kernels[8]["phase_launches"].items() if n <= 0]
+    if missed:
+        raise AssertionError(f"paths that never launched the VAE encode kernels: {missed}")
     over = [(k["name"], k["bound_share"]) for k in kernels if k["bound_share"] > 1.05]
     if over:
         raise AssertionError(f"a kernel ran faster than its bound allows: {over}")
@@ -1024,7 +1132,7 @@ def dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
         with timed_stages(torch, stages) as spans:
             for _ in range(DP_ITERATIONS):
                 n0 = len(spans["collective"])
-                RC.reset_launch_counts()
+                reset_launch_counts(RC)
                 torch.cuda.synchronize()
                 h0 = time.perf_counter()
                 ts, envs, m = step(ts, envs)
@@ -1032,7 +1140,7 @@ def dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
                 seconds = time.perf_counter() - h0
                 coll = spans["collective"][n0:]
                 out["iterations"].append({
-                    "seconds": seconds, "launches": dict(RC.LAUNCHES),
+                    "seconds": seconds, "launches": launch_counts(RC),
                     "checksum": _state_checksum(torch, ts),
                     "collectives": len(coll), "collective_ms": span_ms(coll)[0],
                     "collective_host_ms": span_ms(coll)[1],
@@ -1040,12 +1148,12 @@ def dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
                                                          "train_loss/value", "train/returns",
                                                          "train/approx_kl")},
                     "total_env_steps": ts.total_env_steps})
-        RC.reset_launch_counts()
+        reset_launch_counts(RC)
         h0 = time.perf_counter()
         ev = train_dp.make_dp_evaluate(dp, ts.model, config, params, config.num_envs, chunk=EVAL_STEPS,
                                        latent_obs=latent)(make_generator(3, dev), EVAL_STEPS)
         torch.cuda.synchronize()
-        out["eval"] = {"seconds": time.perf_counter() - h0, "launches": dict(RC.LAUNCHES),
+        out["eval"] = {"seconds": time.perf_counter() - h0, "launches": launch_counts(RC),
                        "metrics": {k: v.tolist() for k, v in ev.items()}}
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
@@ -1097,7 +1205,8 @@ def dp_phase(torch, smi):
         if len(set(sums)) != 1:
             raise AssertionError(f"[dp] the ranks' states differ after iteration {i}: {sums}")
         for r, it in enumerate(its):
-            if (it["launches"]["ground_pass"], it["launches"]["composite"]) != (config.horizon + 1,) * 2:
+            if (it["launches"]["ground_pass"], it["launches"]["composite"], it["launches"]["vae_encode"]) \
+                    != (config.horizon + 1, config.horizon + 1, 3 * (config.horizon + 1)):
                 raise AssertionError(f"[dp] rank {r} rollout {i} launched {it['launches']}, not "
                                      f"{config.horizon + 1} of each camera kernel")
             if not all(math.isfinite(v) for v in it["metrics"].values()):
@@ -1337,7 +1446,7 @@ def trainer_phase(torch, ppo, RC, smi):
     train_cli.TrainerSettings, train_cli.Trainer = SmokeSettings, RecordingTrainer
     try:
         with in_temp_dir():
-            RC.reset_launch_counts()
+            reset_launch_counts(RC)
             h0 = time.perf_counter()
             with timed_stages(torch, stages) as mixed:
                 train_cli.main(argv + ["--model_name", "smoke", "--num_episodes", "2"])
@@ -1347,7 +1456,7 @@ def trainer_phase(torch, ppo, RC, smi):
                 train_cli.main(argv + ["--model_name", "smoke_f32", "--num_episodes", "2",
                                        "--policy_dtype", "float32"])
             torch.cuda.synchronize()
-            launches = dict(RC.LAUNCHES)
+            launches = launch_counts(RC)
             model_dir = runs[1]["model_dir"]
             best_json = os.path.join(model_dir, "best_score.json")
             best = sorted(int(e) for e in os.listdir(os.path.join(model_dir, "checkpoints")) if e.isdigit())
@@ -1438,10 +1547,11 @@ def pixel_phase(torch, RC, smi):
             ("pixel_rollout", "pixel_update", "pixel_train_iteration", "warm_start_from_vae")}
 
     def counted_rollout(*args, **kwargs):
-        before = dict(RC.LAUNCHES)
+        before = launch_counts(RC)
         out = real["pixel_rollout"](*args, **kwargs)
         torch.cuda.synchronize()
-        rollout_launches.append({k: RC.LAUNCHES[k] - before[k] for k in before})
+        after = launch_counts(RC)
+        rollout_launches.append({k: after[k] - before[k] for k in before})
         return out
 
     def measured_update(*args, **kwargs):
@@ -1470,7 +1580,7 @@ def pixel_phase(torch, RC, smi):
     try:
         torch.cuda.empty_cache()
         with in_temp_dir():
-            RC.reset_launch_counts()
+            reset_launch_counts(RC)
             h0 = time.perf_counter()
             with timed_stages(torch, [(pixels, "pixel_rollout", "rollout"),
                                       (pixels, "pixel_update", "update")]) as phases:
@@ -1478,7 +1588,7 @@ def pixel_phase(torch, RC, smi):
                 train_cli.main(PIXEL_ARGV + ["--model_name", "pixels", "--num_episodes", "3"])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - h0
-            launches = dict(RC.LAUNCHES)
+            launches = launch_counts(RC)
     finally:
         train_cli.TrainerSettings, train_cli.Trainer = saved
         for name, fn in real.items():
@@ -1588,12 +1698,12 @@ def eval_phase(RC, smi, tag, agent_dir, argv, envs, steps, tolerance, kernels,
         raise AssertionError(f"the reference eval is of another drive: {ref['command']}")
     with in_temp_dir() as tmp:
         shutil.copytree(agent_dir, os.path.join(tmp, "models", "torch", name))
-        RC.reset_launch_counts()
+        reset_launch_counts(RC)
         h0 = time.perf_counter()
         m = eval_cli.main(["--model_name", f"torch/{name}", "--num_envs", str(envs), "--no_video",
                            "--eval_max_steps", str(steps)] + argv)
         seconds = time.perf_counter() - h0
-        launches = dict(RC.LAUNCHES)
+        launches = launch_counts(RC)
     want = ref["metrics"]["eval/distance_traveled"]
     got = m["eval/distance_traveled"]
     reasons = {TerminationReason(i).name: m[f"eval/termination_reasons/{i}"]
@@ -1642,7 +1752,7 @@ def vae_pipeline_phase(torch, RC, smi, states, params):
         return out
 
     with in_temp_dir():
-        RC.reset_launch_counts()
+        reset_launch_counts(RC)
         h0 = time.perf_counter()
         n = collect_data.main(["--output_dir", "data", "--num_images", str(VAE_IMAGES)])
         torch.cuda.synchronize()
@@ -1661,7 +1771,7 @@ def vae_pipeline_phase(torch, RC, smi, states, params):
         with torch.no_grad():
             z = vae.encode(frames)
         torch.cuda.synchronize()
-        launches = dict(RC.LAUNCHES)
+        launches = launch_counts(RC)
     train_epochs = [t for is_train, t in epochs if is_train]
     log(f"[vae_pipeline] {smi}: collect_data {n} pairs in {collect_s:.2f} s = {n / collect_s:.1f} "
         f"pairs/s ({3 * n} env steps, one env); train_vae {len(history['val_loss'])} epochs in "

@@ -77,11 +77,11 @@ def test_kernel_build_flags():
     """Plain nvcc for sm_90a with -fmad=false (bit-exact against the plain
     versions), one compile per source plus one link, no torch headers; each
     source names the TPU kernel it replaces, or that it replaces none (the
-    memory policy's SSM step)."""
+    memory policy's SSM step, the frozen VAE's encode)."""
     from carla_ppo_tpu_torch.utils import cuda_build
 
     compiles, link = cuda_build.compile_commands("nvcc", pathlib.Path("/tmp/x"))
-    assert len(compiles) == len(cuda_build.SOURCES) == 4
+    assert len(compiles) == len(cuda_build.SOURCES) == 5
     for cmd in compiles:
         assert "-fmad=false" in cmd and "arch=compute_90a,code=sm_90a" in cmd
         assert "-c" in cmd and "-Xptxas" in cmd
@@ -90,7 +90,7 @@ def test_kernel_build_flags():
         text = (cuda_build.CSRC / src).read_text()
         assert 'extern "C"' in text and "torch/" not in text
         head = text.split("#include")[0]
-        if src == "ssm_step.cu":
+        if src in ("ssm_step.cu", "vae_encode.cu"):
             assert "Replaces: no TPU kernel" in head
         else:
             assert "rasterizer_pallas.py" in head
