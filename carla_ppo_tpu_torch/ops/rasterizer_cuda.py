@@ -13,8 +13,7 @@ billboard candidates, a window of at most MAX_WINDOW waypoints, at most
 MAX_STRIPES stripes), device, dtype, shape and contiguity and raises on
 anything else, allocates its output with torch.empty, launches on the
 current stream, raises on a non-zero launch status, and adds one to its
-entry in LAUNCHES per launch (the ground pass also to its frame size's in
-GROUND_PASS_SHAPES). Their plain PyTorch versions live in
+entry in LAUNCHES per launch. Their plain PyTorch versions live in
 ops/rasterizer.py (`ground_pass_plain`, `ground_pass_pose_plain`,
 `composite_plain`, which also takes return_depth_sky); the dispatch there takes the plain version only for
 CPU tensors.
@@ -35,15 +34,11 @@ MAX_STRIPES = 64
 
 # Launch counts per kernel; callers zero them with reset_launch_counts().
 LAUNCHES = {"ground_pass": 0, "ground_pass_pose": 0, "composite": 0, "composite_depth_sky": 0}
-# The ground pass's launches by frame size, (B, H*W) -> launches, which
-# tell its camera contracts apart.
-GROUND_PASS_SHAPES: dict[tuple[int, int], int] = {}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    GROUND_PASS_SHAPES.clear()
 
 
 def _check(name: str, t: Tensor, dtype: torch.dtype, shape: tuple) -> None:
@@ -100,7 +95,6 @@ def ground_pass_cuda(
     )
     _raise_on(status, "ground_pass")
     LAUNCHES["ground_pass"] += 1
-    GROUND_PASS_SHAPES[(B, hw)] = GROUND_PASS_SHAPES.get((B, hw), 0) + 1
     return out
 
 

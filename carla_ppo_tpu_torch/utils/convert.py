@@ -119,8 +119,9 @@ def _counter_tree(counters: Mapping[str, Any], reward_norm: Mapping[str, Any]) -
 def vae_encoder_state_dict(
     tree: Mapping[str, Any], encoded_shape: Tuple[int, int, int]
 ) -> Dict[str, torch.Tensor]:
-    """flax VAE params -> models.vae.VAE state_dict (encoder + latent heads;
-    the decoder is not ported and is ignored)."""
+    """flax conv VAE params -> the conv encoder's and latent heads' entries
+    of a models.vae.VAE state_dict; any decoder in the tree is left to
+    vae_state_dict, which calls this for the conv VAE."""
     p = _params(tree)
     out: Dict[str, torch.Tensor] = {}
     enc = p["encoder"]

@@ -135,6 +135,52 @@ def test_port_imports_no_networkx(path):
     assert [str(f) for f in files if _NETWORKX.search(f.read_text())] == []
 
 
+def test_chip_smoke_names_exist():
+    """chip_smoke.py runs only on the card, so its names are checked here:
+    it imports without running main(), every name it imports from the
+    repository (the port, perfbench's yardstick, tests/) exists, and so does
+    every attribute it reads off a module it imported."""
+    import ast
+    import importlib
+    import importlib.util
+    import inspect
+
+    path = REPO / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_names", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert callable(smoke.main)
+
+    def resolve(module, name):
+        mod = importlib.import_module(module)
+        if hasattr(mod, name):
+            return getattr(mod, name)
+        return importlib.import_module(f"{module}.{name}")  # a submodule not yet imported
+
+    # Module aliases over the whole file: the phases take some as arguments
+    # (RC, ppo) from the function that imported them.
+    tree = ast.parse(path.read_text())
+    missing, modules = [], {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module.split(".")[0] in (
+                "carla_ppo_tpu_torch", "perfbench", "tests"):
+            for alias in node.names:
+                try:
+                    obj = resolve(node.module, alias.name)
+                except ModuleNotFoundError:
+                    missing.append(f"{node.module}.{alias.name}")
+                    continue
+                if inspect.ismodule(obj):
+                    modules.setdefault(alias.asname or alias.name, set()).add(obj)
+    read = 0
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name) and node.value.id in modules:
+            read += 1
+            if not any(hasattr(m, node.attr) for m in modules[node.value.id]):
+                missing.append(f"line {node.lineno}: {node.value.id}.{node.attr}")
+    assert read > 100 and missing == []
+
+
 @pytest.mark.parametrize("kernel", ["ground_pass", "composite", "ground_pass_pose",
                                     "composite_depth_sky"])
 def test_cuda_wrappers_refuse_cpu_tensors(kernel):
